@@ -1,0 +1,108 @@
+// Device code shared by the cell-list kernels (surface.cu, fpfh.cu): the
+// 9-column CSR stencil walk and the Smith closed-form smallest eigenpair.
+//
+// The plan (ops/cellgrid.py plan_grid) sorts the points by an int64
+// lexicographic cell key with z fastest, cell = search radius.  For every
+// occupied cell, cols[9 * cell + c] holds the [start, end) range of sorted
+// points in stencil column c (fixed dx, dy in {-1, 0, 1}, z from cell z - 1
+// to z + 1): one contiguous range each, so a query's 27-cell neighbourhood
+// is 9 linear scans.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lgr {
+
+constexpr float kBig = 3.0e38f;
+constexpr double kPi = 3.14159265358979323846;
+
+// Visit every sorted point of the 27-cell stencil of `cell`, column by
+// column (the radius test is the visitor's).
+template <class Visit>
+__device__ __forceinline__ void walk_stencil(const int2* __restrict__ cols, int cell,
+                                             Visit&& visit) {
+  const int2* row = cols + 9 * static_cast<size_t>(cell);
+#pragma unroll 1
+  for (int c = 0; c < 9; ++c) {
+    const int2 r = __ldg(row + c);
+    for (int j = r.x; j < r.y; ++j) visit(j);
+  }
+}
+
+// The reference's polynomial atan2 (cellgrid._atan2_poly, Abramowitz-Stegun
+// 4.4.49, ~1e-5 rad), operation for operation as ops/cellgrid.atan2_poly.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float z = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float s = z * z;
+  const float p =
+      z * (0.99986614f +
+           s * (-0.33029951f + s * (0.18014100f + s * (-0.08513300f + s * 0.02083510f))));
+  float r = ay > ax ? static_cast<float>(kPi / 2) - p : p;
+  r = x < 0.f ? static_cast<float>(kPi) - r : r;
+  return y < 0.f ? -r : r;
+}
+
+// Smallest (l0 <= l1 <= l2, unit eigenvector of l0) of a symmetric 3x3
+// matrix: the Smith closed form of cellgrid._smallest_eig3 / ops/eigen3.py,
+// with the reference's polynomial acos (l0 of a flat patch is a small
+// difference of O(trace) terms, so the acos rounding shows in the
+// curvature); the vector is the largest cross product of two rows of
+// (A - l0 I), +z when all are degenerate.
+__device__ __forceinline__ void smallest_eig3(float a00, float a01, float a02, float a11,
+                                              float a12, float a22, float& l0, float& l1,
+                                              float& l2, float& vx, float& vy, float& vz) {
+  const float eps = 1e-20f;
+  const float scale =
+      fmaxf(fmaxf(fmaxf(fmaxf(fmaxf(fabsf(a00), fabsf(a11)), fabsf(a22)), fabsf(a01)),
+                  fmaxf(fabsf(a02), fabsf(a12))),
+            eps);
+  const float b00 = a00 / scale, b11 = a11 / scale, b22 = a22 / scale;
+  const float b01 = a01 / scale, b02 = a02 / scale, b12 = a12 / scale;
+  const float q = (b00 + b11 + b22) / 3.0f;
+  const float p1 = b01 * b01 + b02 * b02 + b12 * b12;
+  const float c00 = b00 - q, c11 = b11 - q, c22 = b22 - q;
+  const float p2 = c00 * c00 + c11 * c11 + c22 * c22 + 2.0f * p1;
+  const float p = sqrtf(fmaxf(p2 / 6.0f, 0.0f));
+  const float sp = fmaxf(p, eps);
+  const float d00 = c00 / sp, d11 = c11 / sp, d22 = c22 / sp;
+  const float d01 = b01 / sp, d02 = b02 / sp, d12 = b12 / sp;
+  const float det = d00 * (d11 * d22 - d12 * d12) - d01 * (d01 * d22 - d12 * d02) +
+                    d02 * (d01 * d12 - d11 * d02);
+  const float r = fminf(fmaxf(det / 2.0f, -1.0f), 1.0f);
+  const float phi = atan2_poly(sqrtf(fmaxf(1.0f - r * r, 0.0f)), r) / 3.0f;
+  float e_hi = q + 2.0f * p * cosf(phi);
+  float e_lo = q + 2.0f * p * cosf(phi + static_cast<float>(2.0 * kPi / 3.0));
+  float e_mid = 3.0f * q - e_hi - e_lo;
+  if (p <= eps) e_hi = e_mid = e_lo = q;
+  const float m00 = b00 - e_lo, m11 = b11 - e_lo, m22 = b22 - e_lo;
+  // cross products of the row pairs (0,1), (0,2), (1,2) of B - e_lo I
+  const float c01x = b01 * b12 - b02 * m11, c01y = b02 * b01 - m00 * b12,
+              c01z = m00 * m11 - b01 * b01;
+  const float c02x = b01 * m22 - b02 * b12, c02y = b02 * b02 - m00 * m22,
+              c02z = m00 * b12 - b01 * b02;
+  const float c12x = m11 * m22 - b12 * b12, c12y = b12 * b02 - b01 * m22,
+              c12z = b01 * b12 - m11 * b02;
+  const float n01 = c01x * c01x + c01y * c01y + c01z * c01z;
+  const float n02 = c02x * c02x + c02y * c02y + c02z * c02z;
+  const float n12 = c12x * c12x + c12y * c12y + c12z * c12z;
+  const bool best12 = n12 > fmaxf(n01, n02);
+  const bool best02 = !best12 && (n02 > n01);
+  float x = best12 ? c12x : (best02 ? c02x : c01x);
+  float y = best12 ? c12y : (best02 ? c02y : c01y);
+  float z = best12 ? c12z : (best02 ? c02z : c01z);
+  if (fmaxf(fmaxf(n01, n02), n12) <= eps * 10.0f) {
+    x = 0.0f;
+    y = 0.0f;
+    z = 1.0f;
+  }
+  const float vn = sqrtf(fmaxf(x * x + y * y + z * z, eps));
+  l0 = e_lo * scale;
+  l1 = e_mid * scale;
+  l2 = e_hi * scale;
+  vx = x / vn;
+  vy = y / vn;
+  vz = z / vn;
+}
+
+}  // namespace lgr

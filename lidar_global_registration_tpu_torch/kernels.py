@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels of `csrc/`.
+
+All `csrc/*.cu` files compile with nvcc into ONE shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds).  The library is built at first use into `_build/`, under a name
+that carries the hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+
+Every C entry point takes device pointers and the stream as `void*`, ints
+and floats by value, launches on that stream without synchronising, and
+returns `cudaGetLastError()`; `launch` raises when that is not 0.  Nothing
+here falls back to anything: a failed build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no FMA contraction: the radius tests and pair features then round
+    # exactly like the plain PyTorch versions they are checked against
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures (all return int = cudaError_t)
+SIGNATURES = {
+    # pts, cell_of, cols, oid, n, r2, out8, nn_d, nn_id, stream
+    "lgr_surface": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
+    # pts, nrm, cell_of, cols, n, r2, gx, gy, gz, spfh, cnt, stream
+    "lgr_spfh": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
+    # pts, cell_of, cols, spfh, n, r2, feat, kcnt, stream
+    "lgr_combine": (_P, _P, _P, _P, _I, _F, _P, _P, _P),
+    # query, train, qn, tn, nq, nt, d, best_d2, best_i, stream
+    "lgr_nn_l2": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblgr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(out: Path, verbose: bool = False) -> tuple[float, str]:
+    """Compile every csrc/*.cu into `out`.  Returns (seconds nvcc took, its
+    output); verbose adds ptxas's per-kernel register and spill report."""
+    cu, _ = _sources()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return seconds, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    if _lib is None:
+        path = library_path()
+        if not path.exists():
+            build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.lgr_error_string.argtypes = [ctypes.c_int]
+        lib.lgr_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point and raise if its launch failed."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.lgr_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    (None in `shape` matches any size)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,536 @@
+"""Cell-list neighbour passes: surface (normals, density) and FPFH.
+
+The counterpart of lidar_global_registration_tpu/ops/pallas/cellgrid.py,
+laid out for the H100 instead of the TPU:
+
+  plan:   points sorted by an int64 lexicographic cell key (cell = search
+          radius, so the 27-cell stencil holds every neighbour) with ONE
+          stable sort; for every occupied cell a CSR row of the 9 z-columns
+          of its stencil, each a contiguous [start, end) range of the sorted
+          order (z is the fastest key axis), found with searchsorted.
+  passes: one CUDA thread per sorted query walks its cell's 9 ranges
+          (csrc/surface.cu, csrc/fpfh.cu).  Neighbouring threads of a warp
+          sit in one cell, so their candidate loads hit the same lines.
+
+Every kernel has a plain PyTorch version here that walks the same plan
+with padded candidate blocks over query chunks.  A wrapper runs the plain
+version only for tensors on the CPU; on a CUDA tensor it launches the
+kernel or raises.  Outputs keep the JAX package's layout (input order,
+SoA channels) at the public functions.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from lidar_global_registration_tpu_torch import kernels
+
+NR_BINS = 11
+DIM = 33
+BIG = 3.0e38
+_INT32_MAX = 2**31 - 1
+# the cell is the radius widened by this relative margin: a pair whose
+# float32 d2 rounds to <= r2 can be up to ~1e-7 relatively beyond r, and
+# must still lie in adjacent cells
+_CELL_MARGIN = 1e-5
+_CHUNK_PAIRS = 1 << 21  # candidate slots per query chunk of the plain versions
+
+
+@dataclass(frozen=True)
+class GridPlan:
+    """Sorted state + CSR stencil table of one grid.
+
+    order:   i64[N] input row of each sorted slot (valid points first);
+    n_valid: number of valid points (sorted slots [0, n_valid));
+    pts:     f32[N, 4] sorted xyz (w = 0), 16-byte rows for one vector load;
+    nrm:     f32[N, 4] sorted normals (zeros until set_normals);
+    oid:     i32[n_valid] = order[:n_valid], the input id of each query;
+    cell_of: i32[n_valid] CSR row of each sorted point's cell;
+    cols:    i32[n_cells, 9, 2] [start, end) of the 9 stencil columns;
+    valid:   bool[N] input-order validity."""
+
+    order: torch.Tensor
+    n_valid: int
+    pts: torch.Tensor
+    nrm: torch.Tensor
+    oid: torch.Tensor
+    cell_of: torch.Tensor
+    cols: torch.Tensor
+    valid: torch.Tensor
+
+
+def plan_grid(xyz: torch.Tensor, valid: torch.Tensor, cell: float) -> GridPlan:
+    """Sort the cloud by cell and build the 9-column CSR stencil table
+    (counterpart of plan_grid / plan_grid_many / _grid_frame / _lex_keys,
+    cellgrid.py:133-166, 504-531, with the exact m=1 cell)."""
+    dev = xyz.device
+    N = xyz.shape[0]
+    cell = float(cell) * (1.0 + _CELL_MARGIN)
+    x64 = xyz.to(torch.float64)
+    n_valid = int(valid.sum())
+    if n_valid > 0:
+        lo = x64[valid].amin(0)
+        origin = lo - 0.5 * cell
+        c = torch.floor((x64 - origin) / cell).clamp_min(0).to(torch.int64)
+        dims = c[valid].amax(0) + 1
+    else:
+        c = torch.zeros((N, 3), dtype=torch.int64, device=dev)
+        dims = torch.ones(3, dtype=torch.int64, device=dev)
+    ny, nz = dims[1], dims[2]
+    key = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
+    key = torch.where(valid, key, torch.iinfo(torch.int64).max)
+    ks, order = torch.sort(key, stable=True)
+    ks = ks[:n_valid]
+    uniq, counts = torch.unique_consecutive(ks, return_counts=True)
+    n_cells = uniq.shape[0]
+    cell_of = torch.repeat_interleave(
+        torch.arange(n_cells, dtype=torch.int32, device=dev), counts
+    )
+    cx, cy, cz = uniq // (ny * nz), (uniq // nz) % ny, uniq % nz
+    off = torch.tensor([-1, 0, 1], dtype=torch.int64, device=dev)
+    ox = off.repeat_interleave(3)  # the 9 (dx, dy) columns, x-major
+    oy = off.repeat(3)
+    nx_ = cx[:, None] + ox[None, :]
+    ny_ = cy[:, None] + oy[None, :]
+    inb = (nx_ >= 0) & (nx_ < dims[0]) & (ny_ >= 0) & (ny_ < ny)
+    base = (nx_ * ny + ny_) * nz
+    klo = base + (cz - 1).clamp_min(0)[:, None]
+    khi = base + torch.minimum(cz + 1, nz - 1)[:, None]
+    start = torch.searchsorted(ks, klo, right=False)
+    end = torch.searchsorted(ks, khi, right=True)
+    start = torch.where(inb, start, 0)
+    end = torch.where(inb, end, 0)
+    cols = torch.stack([start, end], -1).to(torch.int32).contiguous()
+    pad = torch.zeros((N, 1), dtype=torch.float32, device=dev)
+    pts = torch.cat([xyz.to(torch.float32)[order], pad], 1).contiguous()
+    return GridPlan(
+        order=order, n_valid=n_valid, pts=pts, nrm=torch.zeros_like(pts),
+        oid=order[:n_valid].to(torch.int32).contiguous(), cell_of=cell_of,
+        cols=cols, valid=valid,
+    )
+
+
+def set_normals(plan: GridPlan, normal: torch.Tensor) -> GridPlan:
+    """The plan with `normal` (input order, [N, 3]) in its sorted state."""
+    pad = torch.zeros((normal.shape[0], 1), dtype=torch.float32, device=normal.device)
+    nrm = torch.cat([normal.to(torch.float32)[plan.order], pad], 1).contiguous()
+    return replace(plan, nrm=nrm)
+
+
+def _unsort(plan: GridPlan, sorted_rows: torch.Tensor, fill=0.0) -> torch.Tensor:
+    """Scatter per-sorted-query rows [n_valid, ...] back to input order [N, ...]."""
+    N = plan.order.shape[0]
+    out = torch.full((N,) + sorted_rows.shape[1:], fill, dtype=sorted_rows.dtype,
+                     device=sorted_rows.device)
+    out[plan.order[:plan.n_valid]] = sorted_rows
+    return out
+
+
+def candidates(plan: GridPlan, q0: int, q1: int):
+    """Padded candidate block of sorted queries [q0, q1): (ids i64[m, L],
+    ok bool[m, L]) — every point of the 9 stencil columns, in column order."""
+    cols = plan.cols[plan.cell_of[q0:q1].long()].long()  # [m, 9, 2]
+    start = cols[..., 0]
+    ln = cols[..., 1] - start
+    cum = ln.cumsum(1)
+    tot = cum[:, -1]
+    L = max(int(tot.max()) if tot.numel() else 0, 1)
+    k = torch.arange(L, device=cols.device)[None, :].expand(cols.shape[0], L).contiguous()
+    col = torch.searchsorted(cum, k, right=True).clamp_max(8)
+    before = cum.gather(1, col) - ln.gather(1, col)
+    ids = start.gather(1, col) + (k - before)
+    ok = k < tot[:, None]
+    return torch.where(ok, ids, 0), ok
+
+
+def _query_chunks(plan: GridPlan):
+    """Query ranges whose candidate blocks hold about _CHUNK_PAIRS slots."""
+    if plan.n_valid == 0:
+        return
+    lens = (plan.cols[..., 1] - plan.cols[..., 0]).sum(1)
+    widest = max(int(lens.max()), 1)
+    step = max(1, _CHUNK_PAIRS // widest)
+    for q0 in range(0, plan.n_valid, step):
+        yield q0, min(q0 + step, plan.n_valid)
+
+
+# ---------------------------------------------------------------------------
+# Smith closed-form smallest eigenpair (cellgrid._smallest_eig3, eigen3.py)
+# ---------------------------------------------------------------------------
+def atan2_poly(y, x):
+    """The JAX package's polynomial atan2 (cellgrid._atan2_poly,
+    Abramowitz-Stegun 4.4.49, ~1e-5 rad)."""
+    ax, ay = x.abs(), y.abs()
+    z = torch.minimum(ax, ay) / torch.maximum(ax, ay).clamp_min(1e-30)
+    s = z * z
+    p = z * (0.99986614 + s * (-0.33029951 + s * (0.18014100 + s * (-0.08513300
+                                                                   + s * 0.02083510))))
+    r = torch.where(ay > ax, math.pi / 2 - p, p)
+    r = torch.where(x < 0, math.pi - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def smallest_eig3(a00, a01, a02, a11, a12, a22):
+    """(l0 <= l1 <= l2, unit eigenvector of l0) of symmetric 3x3 matrices
+    given as 6 component tensors; the degenerate fallback vector is +z.
+    The angle uses the reference's polynomial acos: l0 of a flat patch is
+    the small difference of two O(trace) terms, so the angle's rounding
+    shows in the curvature, and the port keeps the reference's."""
+    eps = 1e-20
+    scale = torch.stack([a00.abs(), a11.abs(), a22.abs(), a01.abs(), a02.abs(),
+                         a12.abs()]).amax(0).clamp_min(eps)
+    b00, b11, b22 = a00 / scale, a11 / scale, a22 / scale
+    b01, b02, b12 = a01 / scale, a02 / scale, a12 / scale
+    q = (b00 + b11 + b22) / 3.0
+    p1 = b01 * b01 + b02 * b02 + b12 * b12
+    c00, c11, c22 = b00 - q, b11 - q, b22 - q
+    p2 = c00 * c00 + c11 * c11 + c22 * c22 + 2.0 * p1
+    p = (p2 / 6.0).clamp_min(0.0).sqrt()
+    sp = p.clamp_min(eps)
+    d00, d11, d22 = c00 / sp, c11 / sp, c22 / sp
+    d01, d02, d12 = b01 / sp, b02 / sp, b12 / sp
+    det = (d00 * (d11 * d22 - d12 * d12) - d01 * (d01 * d22 - d12 * d02)
+           + d02 * (d01 * d12 - d11 * d02))
+    r = (det / 2.0).clamp(-1.0, 1.0)
+    phi = atan2_poly((1.0 - r * r).clamp_min(0.0).sqrt(), r) / 3.0
+    e_hi = q + 2.0 * p * torch.cos(phi)
+    e_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e_mid = 3.0 * q - e_hi - e_lo
+    iso = p <= eps
+    e_hi = torch.where(iso, q, e_hi)
+    e_mid = torch.where(iso, q, e_mid)
+    e_lo = torch.where(iso, q, e_lo)
+    m00, m11, m22 = b00 - e_lo, b11 - e_lo, b22 - e_lo
+
+    def cross(ax, ay, az, bx, by, bz):
+        return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
+
+    c01 = cross(m00, b01, b02, b01, m11, b12)
+    c02 = cross(m00, b01, b02, b02, b12, m22)
+    c12 = cross(b01, m11, b12, b02, b12, m22)
+    n01, n02, n12 = (v[0] * v[0] + v[1] * v[1] + v[2] * v[2] for v in (c01, c02, c12))
+    best12 = n12 > torch.maximum(n01, n02)
+    best02 = (~best12) & (n02 > n01)
+    v = [torch.where(best12, c12[i], torch.where(best02, c02[i], c01[i])) for i in range(3)]
+    degen = torch.maximum(torch.maximum(n01, n02), n12) <= eps * 10.0
+    vx = torch.where(degen, 0.0, v[0])
+    vy = torch.where(degen, 0.0, v[1])
+    vz = torch.where(degen, 1.0, v[2])
+    vn = (vx * vx + vy * vy + vz * vz).clamp_min(eps).sqrt()
+    return e_lo * scale, e_mid * scale, e_hi * scale, vx / vn, vy / vn, vz / vn
+
+
+# ---------------------------------------------------------------------------
+# K1 · surface: radius moments -> normal, curvature, eigenvalues, count, NN
+# ---------------------------------------------------------------------------
+def surface_plain(plan: GridPlan, r2: float):
+    """Plain version of csrc/surface.cu.  Per sorted query: moments of the
+    neighbours within r (self included) centred on the query, covariance,
+    smallest eigenpair; nearest neighbour at nonzero distance (ties to the
+    lowest input id).  Returns (out f32[n, 8] = normal xyz, curvature,
+    l0, l1, l2, count; nn_d f32[n] (0 without a neighbour); nn_id i32[n]
+    input id, -1 without a neighbour)."""
+    dev = plan.pts.device
+    n = plan.n_valid
+    out = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+    nn_d = torch.zeros((n,), dtype=torch.float32, device=dev)
+    nn_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    oid = plan.order.to(torch.int32)
+    for q0, q1 in _query_chunks(plan):
+        ids, ok = candidates(plan, q0, q1)
+        q = plan.pts[q0:q1, None, :3]
+        d = plan.pts[ids, :3] - q
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        w = (ok & (d2 <= r2)).to(torch.float32)
+        s0 = w.sum(1)
+        cnt = s0.clamp_min(1.0)
+        mx, my, mz = (dx * w).sum(1) / cnt, (dy * w).sum(1) / cnt, (dz * w).sum(1) / cnt
+        l0, l1, l2, vx, vy, vz = smallest_eig3(
+            (dx * dx * w).sum(1) / cnt - mx * mx,
+            (dx * dy * w).sum(1) / cnt - mx * my,
+            (dx * dz * w).sum(1) / cnt - mx * mz,
+            (dy * dy * w).sum(1) / cnt - my * my,
+            (dy * dz * w).sum(1) / cnt - my * mz,
+            (dz * dz * w).sum(1) / cnt - mz * mz,
+        )
+        tot = (l0 + l1 + l2).clamp_min(1e-30)
+        curv = l0.clamp_min(0.0) / tot
+        out[q0:q1] = torch.stack([vx, vy, vz, curv, l0, l1, l2, s0], 1)
+        dpos = torch.where((w > 0) & (d2 > 0.0), d2, torch.inf)
+        dmin = dpos.amin(1)
+        cand = torch.where(dpos == dmin[:, None], oid[ids], _INT32_MAX)
+        has = torch.isfinite(dmin)
+        nn_d[q0:q1] = torch.where(has, dmin, 0.0).sqrt()
+        nn_id[q0:q1] = torch.where(has, cand.amin(1), -1)
+    return out, nn_d, nn_id
+
+
+def surface_cuda(plan: GridPlan, r2: float):
+    """K1 · csrc/surface.cu: same contract as surface_plain."""
+    n = plan.n_valid
+    dev = plan.pts.device
+    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    nn_d = torch.empty((n,), dtype=torch.float32, device=dev)
+    nn_id = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, nn_d, nn_id
+    _check_plan(plan)
+    kernels.launch(
+        "lgr_surface", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+        plan.cols.data_ptr(), plan.oid.data_ptr(), n, r2,
+        out.data_ptr(), nn_d.data_ptr(), nn_id.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    surface_cuda.launches += 1
+    return out, nn_d, nn_id
+
+
+surface_cuda.launches = 0
+
+
+def surface_sorted(plan: GridPlan, r2: float):
+    """K1 on the plan's device: the kernel on CUDA, the plain version on CPU."""
+    if plan.pts.is_cuda:
+        return surface_cuda(plan, r2)
+    return surface_plain(plan, r2)
+
+
+def _f32_square(r: float) -> float:
+    """r*r rounded like the JAX package's float32 `r * r`."""
+    r32 = np.float32(r)
+    return float(r32 * r32)
+
+
+def surface_pass(plan: GridPlan, normal_radius: float, viewpoint=None):
+    """Surface pass on a plan (cellgrid.surface_pass + the epilogue of
+    _surface_iss_impl, cellgrid.py:1755-1784): normals flipped towards the
+    viewpoint and zeroed where fewer than 3 points lie within the radius,
+    curvature, k=2 smoothed density through the nearest neighbour,
+    eigenvalues.  Returns (normal [N,3], curv [N], density [N],
+    eigvals [N,3], ok [N]) in input order."""
+    dev = plan.pts.device
+    rows, nn_d, nn_id = surface_sorted(plan, _f32_square(normal_radius))
+    rows = _unsort(plan, rows)
+    dmin = _unsort(plan, nn_d)
+    nnid = _unsort(plan, nn_id, fill=-1).long()
+    valid = plan.valid
+    normal = rows[:, 0:3]
+    cnt = rows[:, 7]
+    ok = valid & (cnt >= 3)
+    vp = torch.zeros(3, dtype=torch.float32, device=dev) if viewpoint is None else (
+        torch.as_tensor(viewpoint, dtype=torch.float32, device=dev))
+    xyz = _unsort(plan, plan.pts[:plan.n_valid, :3])
+    to_vp = vp[None, :] - xyz
+    flip = (normal * to_vp).sum(-1) < 0.0
+    normal = torch.where(flip[:, None], -normal, normal)
+    normal = torch.where(ok[:, None], normal, 0.0)
+    has_nn = nnid >= 0
+    d_raw = torch.where(valid & has_nn, dmin, 0.0)
+    d_nn = torch.where(has_nn, d_raw[nnid.clamp_min(0)], d_raw)
+    density = torch.where(
+        valid & has_nn, torch.minimum(d_raw, torch.where(d_nn > 0, d_nn, d_raw)), 0.0
+    )
+    return normal, rows[:, 3], density, rows[:, 4:7], ok
+
+
+# ---------------------------------------------------------------------------
+# K5 · SPFH: Darboux pair features binned 3 x 11, x 100 / count
+# ---------------------------------------------------------------------------
+def pair_feature_bins(q, qn, c, cn, centre, r2):
+    """Bins (b1, b2, b3 i64) and validity of the pair features of query
+    point/normal q, qn [m, 1, 3] against candidates c, cn [m, L, 3]
+    (cellgrid._pair_feature_bins, PCL computePairFeatures with its |cos|
+    source/target swap).  Coordinates are centred on `centre` (the cloud's
+    AABB centre), so the arithmetic is the same on every grid."""
+    qd = q - centre
+    cd = c - centre
+    dp = cd - qd
+    dpx, dpy, dpz = dp[..., 0], dp[..., 1], dp[..., 2]
+    qnx, qny, qnz = qn[..., 0], qn[..., 1], qn[..., 2]
+    cnx, cny, cnz = cn[..., 0], cn[..., 1], cn[..., 2]
+    d2 = dpx * dpx + dpy * dpy + dpz * dpz
+    qn2 = qnx * qnx + qny * qny + qnz * qnz
+    cn2 = cnx * cnx + cny * cny + cnz * cnz
+    qndp = qnx * dpx + qny * dpy + qnz * dpz
+    cndp = cnx * dpx + cny * dpy + cnz * dpz
+    nsnt = qnx * cnx + qny * cny + qnz * cnz
+    trip = (dpx * (qny * cnz - qnz * cny) + dpy * (qnz * cnx - qnx * cnz)
+            + dpz * (qnx * cny - qny * cnx))
+    dsafe = d2.clamp_min(0.0).sqrt().clamp_min(1e-30)
+    a1 = qndp / dsafe
+    a2 = cndp / dsafe
+    swap = a1.abs() < a2.abs()
+    f3 = torch.where(swap, a2, a1)
+    ns_dp = torch.where(swap, cndp, qndp)
+    ns2 = torch.where(swap, cn2, qn2)
+    vn = (d2 * ns2 - ns_dp * ns_dp).clamp_min(0.0).sqrt()
+    okv = (d2 > 0.0) & (vn > 1e-12)
+    vsn = vn.clamp_min(1e-30)
+    f2 = trip / vsn
+    w_num = torch.where(swap, cndp * nsnt - cn2 * qndp, qn2 * cndp - qndp * nsnt)
+    f1 = torch.atan2(w_num, nsnt * vsn)
+    # Python scalars round to float32 inside the op, like JAX's weak types
+    b1 = torch.floor(NR_BINS * (f1 + math.pi) / (2.0 * math.pi)).clamp(0, NR_BINS - 1)
+    b2 = torch.floor(NR_BINS * (f2 + 1.0) / 2.0).clamp(0, NR_BINS - 1)
+    b3 = torch.floor(NR_BINS * (f3 + 1.0) / 2.0).clamp(0, NR_BINS - 1)
+    ok = okv & (d2 <= r2) & (cn2 > 0.5) & (qn2 > 0.5)
+    return b1.long(), b2.long(), b3.long(), ok
+
+
+def _hist_scale(cnt):
+    """100 / count where count > 0, else 0 (float32, like _spfh_cell)."""
+    return torch.where(cnt > 0, 100.0 / cnt.clamp_min(1.0), 0.0)
+
+
+def spfh_plain(plan: GridPlan, r2: float, centre: torch.Tensor):
+    """Plain version of csrc/fpfh.cu `spfh_kernel`: per sorted query the
+    3 x 11 histogram of its pair features x 100 / count.  Returns
+    (spfh f32[n, 33], count f32[n])."""
+    dev = plan.pts.device
+    n = plan.n_valid
+    spfh = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
+    count = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for q0, q1 in _query_chunks(plan):
+        ids, ok = candidates(plan, q0, q1)
+        m = q1 - q0
+        b1, b2, b3, okp = pair_feature_bins(
+            plan.pts[q0:q1, None, :3], plan.nrm[q0:q1, None, :3],
+            plan.pts[ids, :3], plan.nrm[ids, :3], centre, r2,
+        )
+        okp = okp & ok
+        hist = torch.zeros((m, DIM), dtype=torch.float32, device=dev)
+        row = torch.arange(m, device=dev)[:, None].expand_as(b1)
+        for blk, b in enumerate((b1, b2, b3)):
+            flat = (row * DIM + blk * NR_BINS + b)[okp]
+            hist.view(-1).index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+        cnt = okp.sum(1).to(torch.float32)
+        spfh[q0:q1] = hist * _hist_scale(cnt)[:, None]
+        count[q0:q1] = cnt
+    return spfh, count
+
+
+def spfh_cuda(plan: GridPlan, r2: float, centre: torch.Tensor):
+    """K5 · csrc/fpfh.cu `spfh_kernel`: same contract as spfh_plain."""
+    n = plan.n_valid
+    dev = plan.pts.device
+    spfh = torch.empty((n, DIM), dtype=torch.float32, device=dev)
+    count = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return spfh, count
+    _check_plan(plan)
+    kernels.check(plan.nrm, torch.float32, (plan.pts.shape[0], 4), "nrm")
+    gx, gy, gz = (float(v) for v in centre.tolist())
+    kernels.launch(
+        "lgr_spfh", plan.pts.data_ptr(), plan.nrm.data_ptr(),
+        plan.cell_of.data_ptr(), plan.cols.data_ptr(), n, r2, gx, gy, gz,
+        spfh.data_ptr(), count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    spfh_cuda.launches += 1
+    return spfh, count
+
+
+spfh_cuda.launches = 0
+
+
+def spfh_sorted(plan: GridPlan, r2: float, centre: torch.Tensor):
+    """K5 on the plan's device: the kernel on CUDA, the plain version on CPU."""
+    if plan.pts.is_cuda:
+        return spfh_cuda(plan, r2, centre)
+    return spfh_plain(plan, r2, centre)
+
+
+# ---------------------------------------------------------------------------
+# K6 · combine: own SPFH + 1/d^2-weighted mean of the neighbours' SPFH
+# ---------------------------------------------------------------------------
+def _combine_finish(own, wsum, kcnt):
+    """feat = own + wsum / max(k, 1), each 11-bin block rescaled to sum 100."""
+    feat = own + wsum / kcnt.clamp_min(1.0)[:, None]
+    blocks = []
+    for blk in range(3):
+        f = feat[:, blk * NR_BINS:(blk + 1) * NR_BINS]
+        s = f.sum(1, keepdim=True)
+        blocks.append(torch.where(s > 0, 100.0 * f / s.clamp_min(1e-30), f))
+    return torch.cat(blocks, 1)
+
+
+def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor):
+    """Plain version of csrc/fpfh.cu `combine_kernel` (cellgrid._combine_cell).
+    Returns (feat f32[n, 33], neighbour count f32[n])."""
+    dev = plan.pts.device
+    n = plan.n_valid
+    feat = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
+    kcnt = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for q0, q1 in _query_chunks(plan):
+        ids, ok = candidates(plan, q0, q1)
+        d = plan.pts[ids, :3] - plan.pts[q0:q1, None, :3]
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        nb = ok & (d2 > 0.0) & (d2 <= r2)
+        w = torch.where(nb, 1.0 / d2.clamp_min(1e-30), 0.0)
+        wsum = (spfh[ids] * w[..., None]).sum(1)
+        k = nb.sum(1).to(torch.float32)
+        feat[q0:q1] = _combine_finish(spfh[q0:q1], wsum, k)
+        kcnt[q0:q1] = k
+    return feat, kcnt
+
+
+def combine_cuda(plan: GridPlan, r2: float, spfh: torch.Tensor):
+    """K6 · csrc/fpfh.cu `combine_kernel`: same contract as combine_plain."""
+    n = plan.n_valid
+    dev = plan.pts.device
+    feat = torch.empty((n, DIM), dtype=torch.float32, device=dev)
+    kcnt = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return feat, kcnt
+    _check_plan(plan)
+    kernels.check(spfh, torch.float32, (n, DIM), "spfh")
+    kernels.launch(
+        "lgr_combine", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+        plan.cols.data_ptr(), spfh.data_ptr(), n, r2,
+        feat.data_ptr(), kcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    combine_cuda.launches += 1
+    return feat, kcnt
+
+
+combine_cuda.launches = 0
+
+
+def combine_sorted(plan: GridPlan, r2: float, spfh: torch.Tensor):
+    """K6 on the plan's device: the kernel on CUDA, the plain version on CPU."""
+    if plan.pts.is_cuda:
+        return combine_cuda(plan, r2, spfh)
+    return combine_plain(plan, r2, spfh)
+
+
+def aabb_centre(plan: GridPlan) -> torch.Tensor:
+    """Centre of the valid points' bounding box (float32, as _fpfh_impl)."""
+    p = plan.pts[:plan.n_valid, :3]
+    if plan.n_valid == 0:
+        return torch.zeros(3, dtype=torch.float32, device=p.device)
+    return 0.5 * (p.amin(0) + p.amax(0))
+
+
+def fpfh_pass(plan: GridPlan, radius: float):
+    """FPFH over every point of a plan whose normals are set (cellgrid.fpfh_pass
+    without kp / kp_rows): SPFH (K5) then the weighted combine (K6).
+    Returns (feat f32[N, 33], feat_valid bool[N]) in input order,
+    feat_valid = valid & (neighbour count > 0)."""
+    r2 = _f32_square(radius)
+    spfh, _count = spfh_sorted(plan, r2, aabb_centre(plan))
+    feat_s, kcnt_s = combine_sorted(plan, r2, spfh)
+    feat = _unsort(plan, feat_s)
+    kcnt = _unsort(plan, kcnt_s)
+    feat_valid = plan.valid & (kcnt > 0)
+    return torch.where(feat_valid[:, None], feat, 0.0), feat_valid
+
+
+def _check_plan(plan: GridPlan) -> None:
+    N = plan.pts.shape[0]
+    kernels.check(plan.pts, torch.float32, (N, 4), "pts")
+    kernels.check(plan.cell_of, torch.int32, (plan.n_valid,), "cell_of")
+    kernels.check(plan.cols, torch.int32, (None, 9, 2), "cols")
+    kernels.check(plan.oid, torch.int32, (plan.n_valid,), "oid")

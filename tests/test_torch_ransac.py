@@ -1,0 +1,181 @@
+"""Parity: the PyTorch port's RANSAC stage, its helpers, the cloud density
+and the config bridge against the JAX package."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _synthetic_pair
+from lidar_global_registration_tpu.models import flagship as jfl
+from lidar_global_registration_tpu.models.ransac import draw_hypotheses as jax_draw
+from lidar_global_registration_tpu.ops.density import cloud_density as jax_cloud_density
+from lidar_global_registration_tpu.ops.metrics import estimate_max_iterations as jax_emi
+from lidar_global_registration_tpu.ops.transform import kabsch as jax_kabsch
+from lidar_global_registration_tpu.types import Cloud
+from lidar_global_registration_tpu_torch.models import flagship as tfl
+from lidar_global_registration_tpu_torch.models.ransac import hypotheses_from_samples
+from lidar_global_registration_tpu_torch.ops.density import cloud_density
+from lidar_global_registration_tpu_torch.ops.metrics import estimate_max_iterations
+from lidar_global_registration_tpu_torch.ops.transform import kabsch
+
+torch.set_num_threads(2)
+
+T = torch.from_numpy
+
+
+def _rot(ax, ang):
+    ax = np.asarray(ax, np.float64) / np.linalg.norm(ax)
+    K = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+    return (np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K).astype(np.float32)
+
+
+def _corr_set(rng, M=400, inlier=0.7):
+    """Correspondences p -> q = R p + t (+ noise) with a share of outliers."""
+    R = _rot([0.2, -0.4, 1.0], 0.7)
+    t = np.array([3.0, -1.0, 0.5], np.float32)
+    p = rng.uniform(-10, 10, size=(M, 3)).astype(np.float32)
+    q = (p @ R.T + t + rng.normal(scale=0.01, size=(M, 3))).astype(np.float32)
+    out = rng.random(M) > inlier
+    q[out] = rng.uniform(-10, 10, size=(out.sum(), 3))
+    cvalid = rng.random(M) < 0.9
+    thr = np.full(M, 0.1, np.float32)
+    return p, q, thr, cvalid, R, t
+
+
+def test_kabsch_matches_jax_on_batched_triples(rng):
+    p = rng.uniform(-5, 5, size=(64, 3, 3)).astype(np.float32)
+    R = _rot([1.0, 0.3, -0.2], 1.1)
+    q = (p @ R.T + np.array([1.0, 2.0, -3.0], np.float32)
+         + rng.normal(scale=0.05, size=p.shape)).astype(np.float32)
+    jR, jt = (np.asarray(v) for v in jax_kabsch(jnp.asarray(p), jnp.asarray(q)))
+    tR, tt = (v.numpy() for v in kabsch(T(p), T(q)))
+    # XLA's and PyTorch's float32 eigh of Horn's 4x4 matrix round apart by
+    # up to 5e-5 in R on these triples (each is 1e-5..2e-4 off float64)
+    np.testing.assert_allclose(tR, jR, atol=1e-4)
+    np.testing.assert_allclose(tt, jt, atol=3e-4)  # |t| ~ 4, lever arm ~5
+    # weighted, larger sets
+    w = (rng.random((2, 50)) < 0.8).astype(np.float32)
+    p = rng.uniform(-5, 5, size=(2, 50, 3)).astype(np.float32)
+    q = (p @ R.T + rng.normal(scale=0.05, size=p.shape)).astype(np.float32)
+    jR, jt = (np.asarray(v) for v in jax_kabsch(jnp.asarray(p), jnp.asarray(q), jnp.asarray(w)))
+    tR, tt = (v.numpy() for v in kabsch(T(p), T(q), T(w)))
+    np.testing.assert_allclose(tR, jR, atol=1e-5)
+    np.testing.assert_allclose(tt, jt, atol=5e-5)
+
+
+def test_hypotheses_from_jax_sample_rows(rng):
+    p, q, _thr, cvalid, _R, _t = _corr_set(rng)
+    order = jnp.argsort(~jnp.asarray(cvalid))  # valid rows first (stable)
+    nvalid = int(cvalid.sum())
+    key = jax.random.PRNGKey(7)
+    B, S = 512, 3
+    jR, jt, jok = (np.asarray(v) for v in jax_draw(
+        jnp.asarray(p), jnp.asarray(q), key, nvalid, B, S, 0.95, order=order))
+    # the same draw jax_draw makes, handed to the port as sample rows
+    rows = np.asarray(order[jax.random.randint(key, (B, S), 0, nvalid)])
+    tR, tt, tok = (v.numpy() for v in hypotheses_from_samples(
+        T(p), T(q), T(rows.astype(np.int64)), 0.95))
+    np.testing.assert_array_equal(tok, jok)
+    assert 0 < tok.sum() < B
+    # samples that pair inliers with outliers give ill-conditioned Horn
+    # matrices: against float64 the port's float32 R is off by up to 8e-5
+    # here, the JAX package's by up to 1.7e-4
+    np.testing.assert_allclose(tR[tok], jR[tok], atol=3e-4)
+    np.testing.assert_allclose(tt[tok], jt[tok], atol=2e-3)  # lever arm ~10
+
+
+def test_estimate_max_iterations_exact():
+    support = np.array([0, 1, 5, 37, 120, 300, 555, 799, 800, 5000], np.int32)
+    for n_corr in (0.0, 800.0, 4096.0):
+        j = np.asarray(jax_emi(jnp.asarray(support), jnp.float32(n_corr), 0.999, 3))
+        t = estimate_max_iterations(T(support), n_corr, 0.999, 3).numpy()
+        np.testing.assert_array_equal(np.isinf(t), np.isinf(j))
+        # exact but for the last bit of float32 log (XLA vs PyTorch)
+        np.testing.assert_array_max_ulp(t[np.isfinite(t)], j[np.isfinite(j)], maxulp=1)
+
+
+@pytest.mark.parametrize("M", [64, 2500])
+def test_subset_sel_exact(rng, M):
+    # ~1800 valid: a strided sample at M=64, every valid row at M=2500
+    cvalid = rng.random(3000) < 0.6
+    j = np.asarray(jfl._subset_sel(jnp.asarray(cvalid), M))
+    t = tfl._subset_sel(T(cvalid), M).numpy()
+    np.testing.assert_array_equal(t, j)
+
+
+def test_correspondence_stage_exact(rng):
+    N = 500
+    idx_st = rng.integers(0, N, size=(N, 1)).astype(np.int32)
+    idx_ts = rng.integers(0, N, size=(N, 1)).astype(np.int32)
+    idx_ts[idx_st[:250, 0], 0] = np.arange(250)  # some mutual pairs
+    mask_st = rng.random((N, 1)) < 0.9
+    mask_ts = rng.random((N, 1)) < 0.9
+    dens_s = rng.uniform(0, 0.5, N).astype(np.float32)
+    dens_t = rng.uniform(0, 0.5, N).astype(np.float32)
+    dens_s[:20] = 0.0
+    dens_t[:40] = 0.0
+    jj, jk, jthr = (np.asarray(v) for v in jfl._correspondence_stage(
+        *(jnp.asarray(a) for a in (idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t)), 0.3))
+    tj, tk, tthr = (v.numpy() for v in tfl._correspondence_stage(
+        T(idx_st.astype(np.int64)), T(mask_st), T(idx_ts.astype(np.int64)), T(mask_ts),
+        T(dens_s), T(dens_t), 0.3))
+    np.testing.assert_array_equal(tj, jj)
+    np.testing.assert_array_equal(tk, jk)
+    assert 0 < tk.sum() < N
+    np.testing.assert_array_equal(tthr, jthr)
+
+
+def test_cloud_density_matches_jax():
+    a, _b = _synthetic_pair(3000)
+    a = np.concatenate([a, np.zeros((100, 3), np.float32)])
+    valid = np.arange(a.shape[0]) < 3000
+    z = jnp.zeros((a.shape[0],), jnp.float32)
+    jd = jax_cloud_density(Cloud(xyz=jnp.asarray(a), normal=jnp.zeros_like(jnp.asarray(a)),
+                                 weight=z + 1.0, curvature=z, valid=jnp.asarray(valid)))
+    td = cloud_density(T(a), T(valid))
+    assert td > 0
+    np.testing.assert_allclose(td, jd, rtol=1e-5)
+
+
+def test_ransac_solve_matches_jax_pose(rng):
+    p, q, thr, cvalid, R, t = _corr_set(rng, M=2000)
+    cfg_j = jfl.FlagshipConfig(rounds=8, hypothesis_batch=512, use_iss=False)
+    jres = jfl._ransac_stage(jnp.asarray(p), jnp.asarray(q), jnp.asarray(thr),
+                             jnp.asarray(cvalid), jax.random.PRNGKey(3), cfg_j)
+    cfg_t = tfl.config_from_jax(dataclasses.asdict(cfg_j))
+    tres = tfl.ransac_solve(T(p), T(q), T(thr), T(cvalid),
+                            torch.Generator().manual_seed(3), cfg_t)
+    assert bool(jres["converged"]) and bool(tres["converged"])
+    assert float(tres["n_correspondences"]) == float(jres["n_correspondences"])
+    Tj = np.asarray(jres["transformation"])
+    Tt = tres["transformation"].numpy()
+    for T4 in (Tj, Tt):
+        np.testing.assert_allclose(T4[:3, :3], R, atol=2e-3)
+        np.testing.assert_allclose(T4[:3, 3], t, atol=2e-2)
+    # both refit on the same inlier set up to the draw
+    assert abs(int(tres["inliers"]) - int(jres["inliers"])) <= 3
+
+
+def test_config_from_jax_round_trip():
+    jcfg = jfl.FlagshipConfig(rounds=8, hypothesis_batch=1024, use_iss=False,
+                              match_tile=4096, metric="correspondences", degree_top=500)
+    tcfg = tfl.config_from_jax(dataclasses.asdict(jcfg))
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+@pytest.mark.parametrize("change", [
+    dict(),  # the JAX default: use_iss=True
+    dict(use_iss=False, descriptor="shot"),
+    dict(use_iss=False, alignment="gror"),
+    dict(use_iss=False, pyramid=True),
+    dict(use_iss=False, bf16_matching=True),
+    dict(use_iss=False, metric="uniformity"),
+    dict(use_iss=False, use_cell_fpfh=False),
+])
+def test_config_from_jax_refuses_other_routes(change):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfl.config_from_jax(dataclasses.asdict(jfl.FlagshipConfig(**change)))
