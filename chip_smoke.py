@@ -4,13 +4,25 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the kernels of lidar_global_registration_tpu_torch/csrc from
-source, checks each against its plain PyTorch version at the main path's
-shapes, then registers the bench's keypoint-any pair (bench.py:177-190,
-65,536 points per side) through `models.flagship.register_pair_staged`:
-one warm-up and three timed repeats, each held to the bench's success rule
-(converged, rotation error < 0.05 rad, translation error < distance_thr).
-Then a small pair through both the kernels and the plain versions, and one
-262,144-point pair.  Every launch counter must rise during the main runs.
+source and drives both ported routes of `models.flagship.register_pair_staged`:
+
+  keypoint-any (bench.py:177-190): K1, K5, K6, K7 checked against their
+      plain PyTorch versions at 65,536 points; the bench's 65,536-point
+      pair, one warm-up and three timed repeats; a 4,096-point pair through
+      the kernels and the plain versions; one 262,144-point pair.
+  ISS (the bench's flagship row, bench.py:159-176, 194-256, 420-438):
+      the box + mound pair at 10,485,760 points per side, sampled on the
+      card; radii derived on the raw pair and again after the
+      loader-equivalent pre-downsample, both outside the timed region;
+      K2, K3, K4 and the K5 / K6 subset forms checked at the shapes of the
+      pre-downsampled working cloud; one warm-up and three timed repeats
+      of pre-downsample + register_pair_staged; a 65,536-point pair
+      through the kernels and the plain versions (CPU).
+
+Every timed repeat is held to the bench's success rule (converged,
+rotation error < 0.05 rad, translation error < distance_thr, bench.py:327).
+Each route's launch counters are set to 0 before its main runs and must
+all have risen after them.
 
 The next-to-last line of standard output is a JSON object with one entry
 per kernel; the last is {"ok": true, "device": {...}}.  Any failure exits
@@ -35,6 +47,8 @@ R_ERR_MAX = 0.05  # bench.py:86
 N_MAIN = 65536  # the bench's keypoint-any row (bench.py:77)
 REPEATS = 3
 N_LARGE = 262144
+N_ISS = 10485760  # the bench's flagship ISS row (bench.py:422-425)
+N_ISS_SMALL = 65536
 
 
 def log(*a):
@@ -217,6 +231,281 @@ def pose_error(out, T_gt):
     return float(r), float(t), bool(torch.isfinite(T).all())
 
 
+def shared_share(gpu_out, cpu_out) -> float:
+    """Share of the plain path's correspondences that the kernels' path has."""
+    def pairs(out):
+        rows, match, _thr, ok = (x.cpu() for x in out["correspondences"])
+        return set(zip(rows[ok].tolist(), match[ok].tolist()))
+
+    pc = pairs(cpu_out)
+    return len(pairs(gpu_out) & pc) / max(len(pc), 1)
+
+
+RADII_KEYS = ("normal_cell", "density_src", "density_tgt", "iss_src", "iss_tgt", "feature",
+              "thr")
+
+
+def iss_cfg():
+    from lidar_global_registration_tpu_torch.models.flagship import FlagshipConfig
+
+    # bench.py:238-256 in ISS mode; the other fields are the JAX defaults
+    return FlagshipConfig(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
+                          metric="uniformity")
+
+
+def iss_scene(n: int, dev):
+    """The bench's ISS pair: the box + mound scene on 30 x sqrt(n / 2^20) m
+    (bench.py:168-176), sampled on `dev` from the scene's patch tables."""
+    from __graft_entry__ import _scene_tables
+
+    from lidar_global_registration_tpu_torch.scene import scene_pair
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    extent = 30.0 * max(1.0, float(np.sqrt(n / 2**20)))
+    return scene_pair(_scene_tables(SEED, extent=extent), n, extent, SEED, dev)
+
+
+def check_iss_kernels(sx, sv, radii):
+    """K2, K3, K4 on the pre-downsampled working cloud of one side and the
+    K5 / K6 subset forms on its feature-scale surface (the shapes of the
+    ISS route), each against its plain version."""
+    import math
+
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops.downsample import voxel_centroids_map
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, NORMAL_NR_POINTS
+
+    src = "lidar_global_registration_tpu_torch/csrc/"
+    pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
+    records = []
+    r_iss = radii["iss_src"]
+    plan = cg.plan_grid(sx, sv, r_iss)
+    r2 = cg._f32_square(r_iss)
+    n = plan.n_valid
+    # K2: integer counts, exact
+    c_k, c_p = cg.iss_count_cuda(plan, r2), cg.iss_count_plain(plan, r2)
+    assert torch.equal(c_k, c_p), "K2 counts differ"
+    records.append(dict(
+        name="iss_count", route="cuda", source=src + "iss.cu", replaces=pallas + "1322",
+        max_abs_err=float((c_k - c_p).abs().max()),
+        ms=cuda_ms(lambda: cg.iss_count_cuda(plan, r2), 5),
+        plain_ms=cuda_ms(lambda: cg.iss_count_plain(plan, r2), 1)))
+    log(f"# K2 iss_count ok: n={n} r={r_iss:.4f} mean count {float(c_p.float().mean()):.1f}")
+    # K3: the weighted scatter's smallest eigenvalue is a float32
+    # cancellation residue of sums taken in another order (thread registers
+    # against vectorised reductions): bounded at 1e-3 relatively plus 1e-5
+    # of r^2 absolutely; the gamma decisions may flip only where a ratio
+    # sits within rounding of 0.975 or l3 of 0
+    s_k, ok_k, nb_k = cg.iss_saliency_cuda(plan, r2, c_p, 0.975, 0.975)
+    s_p, ok_p, nb_p = cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975)
+    assert torch.equal(nb_k, nb_p), "K3 neighbour counts differ"
+    flips = int((ok_k != ok_p).sum())
+    both = ok_k & ok_p
+    err = (s_k - s_p).abs()[both]
+    bad = int((err > 1e-3 * s_p.abs()[both] + 1e-5 * r2).sum())
+    assert bad == 0 and flips <= 1e-3 * n, f"K3: {bad} saliencies off, {flips} gate flips"
+    records.append(dict(
+        name="iss_saliency", route="cuda", source=src + "iss.cu", replaces=pallas + "1344",
+        max_abs_err=float(err.max()) if err.numel() else 0.0, ok_flips=flips,
+        ms=cuda_ms(lambda: cg.iss_saliency_cuda(plan, r2, c_p, 0.975, 0.975), 5),
+        plain_ms=cuda_ms(lambda: cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975), 1)))
+    log(f"# K3 iss_saliency ok: {int(ok_p.sum())} pass the gates, {flips} flips, "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}")
+    # K4 on one saliency input: any difference is the kernel's own
+    kp_k = cg.iss_nms_cuda(plan, r2, s_p, ok_p, 4)
+    kp_p = cg.iss_nms_plain(plan, r2, s_p, ok_p, 4)
+    assert torch.equal(kp_k, kp_p), "K4 keypoint masks differ"
+    records.append(dict(
+        name="iss_nms", route="cuda", source=src + "iss.cu", replaces=pallas + "1410",
+        max_abs_err=float((kp_k != kp_p).sum()),
+        ms=cuda_ms(lambda: cg.iss_nms_cuda(plan, r2, s_p, ok_p, 4), 5),
+        plain_ms=cuda_ms(lambda: cg.iss_nms_plain(plan, r2, s_p, ok_p, 4), 1)))
+    log(f"# K4 iss_nms ok: {int(kp_p.sum())} keypoints")
+
+    # the feature-scale surface, its normals and the keypoints' rows on it
+    kp, _sal = cg.iss_pass(plan, r_iss)
+    rf = radii["feature"]
+    voxel_f = math.sqrt(math.pi * rf**2 / FEATURE_NR_POINTS)
+    normal_f = math.sqrt(NORMAL_NR_POINTS / math.pi) * voxel_f
+    sm, smv, row_of, _n_sm = voxel_centroids_map(sx, sv, voxel_f)
+    normal = cg.surface_pass(cg.plan_grid(sm, smv, normal_f), normal_f)[0]
+    pf = cg.set_normals(cg.plan_grid(sm, smv, rf), normal)
+    r2f = cg._f32_square(rf)
+    cen = cg.aabb_centre(pf)
+    N = sm.shape[0]
+    rows_small = row_of[torch.nonzero(kp).squeeze(1)]
+    rows_small = torch.cat([rows_small, torch.full((5,), N, device=sm.device)])  # padding
+    kp_small = torch.zeros((N,), dtype=torch.bool, device=sm.device)
+    kp_small[rows_small[rows_small < N]] = True
+    slots = cg.stencil_slots(pf, torch.nonzero(kp_small[pf.order[:pf.n_valid]]).squeeze(1))
+    # K5 subset: the same kernel over the keypoints' stencil, so its rows
+    # equal the full pass's exactly; against the plain subset, the pair
+    # counts are equal and only bin-edge pairs may move (atan2f)
+    s_full, c_full = cg.spfh_cuda(pf, r2f, cen)
+    s_at, c_at = cg.spfh_at_cuda(pf, r2f, cen, slots)
+    assert torch.equal(c_at[slots], c_full[slots]), "K5 subset counts differ from K5"
+    assert torch.equal(s_at[slots], s_full[slots]), "K5 subset rows differ from K5"
+    s_at_p, c_at_p = cg.spfh_plain(pf, r2f, cen, slots)
+    assert torch.equal(c_at, c_at_p), "K5 subset counts differ from the plain version"
+    f5 = frac_off(s_at[slots], s_at_p[slots])
+    assert f5 < 1e-3, f"K5 subset: {f5:.2e} off by > 0.5"
+    records.append(dict(
+        name="spfh_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
+        max_abs_err=float((s_at - s_at_p).abs().max()), queries=int(slots.numel()),
+        ms=cuda_ms(lambda: cg.spfh_at_cuda(pf, r2f, cen, slots), 5),
+        plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen, slots), 1)))
+    log(f"# K5 subset ok: {slots.numel()} of {pf.n_valid} surface points, frac_off={f5:.2e}")
+    # K6 at kp_rows against the full K6 gathered there (exact), and against
+    # its plain version on the same SPFH input
+    inv = cg.slot_of(pf)
+    srt = torch.where(rows_small < N, inv[rows_small.clamp_max(N - 1)], -1)
+    f_at, k_at = cg.combine_at_cuda(pf, r2f, s_full, srt)
+    f_full, k_full = cg.combine_cuda(pf, r2f, s_full)
+    real = srt >= 0
+    assert torch.equal(f_at[real], f_full[srt[real]]), "K6 kp_rows differ from K6"
+    assert torch.equal(k_at[real], k_full[srt[real]]) and not bool(k_at[~real].any())
+    f_at_p, k_at_p = cg.combine_plain(pf, r2f, s_full, srt)
+    assert torch.equal(k_at, k_at_p), "K6 kp_rows counts differ from the plain version"
+    f6 = frac_off(f_at, f_at_p)
+    assert f6 < 1e-3, f"K6 kp_rows: {f6:.2e} off by > 0.5"
+    records.append(dict(
+        name="combine_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1608",
+        max_abs_err=float((f_at - f_at_p).abs().max()), queries=int(srt.numel()),
+        ms=cuda_ms(lambda: cg.combine_at_cuda(pf, r2f, s_full, srt), 5),
+        plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, s_full, srt), 1)))
+    log(f"# K6 kp_rows ok: {int(real.sum())} rows, max_abs_err={records[-1]['max_abs_err']:.3g}")
+    return records
+
+
+def register_iss(a, b, ones, vp_a, vp_b, radii, vox, aabb, seed, times=None):
+    """pre-downsample + register_pair_staged on the ISS route (bench.py:275-290)."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import (
+        pre_downsample_pair,
+        register_pair_staged,
+    )
+
+    t0 = time.perf_counter()
+    sx, sv, tx, tv = pre_downsample_pair(a, ones, b, ones, vox[0], vox[1], aabb=aabb)
+    if times is not None:
+        torch.cuda.synchronize()
+        times["pre_downsample"] = time.perf_counter() - t0
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    return register_pair_staged(sx, sv, tx, tv, gen, *(radii[k] for k in RADII_KEYS),
+                                vp_src=vp_a, vp_tgt=vp_b, cfg=iss_cfg(),
+                                return_correspondences=True, stage_times=times)
+
+
+def iss_phase(dev, counters):
+    """The 10,485,760-point ISS pair.  Returns the ISS kernel records and
+    the launch counts of its main runs."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import (
+        _aabb_pair,
+        pre_downsample_pair,
+    )
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops.density import derive_radii
+    from lidar_global_registration_tpu_torch.ops.downsample import voxel_centroids_map
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, SEED
+
+    t0 = time.perf_counter()
+    a, b, vp_a, vp_b, T_gt = iss_scene(N_ISS, dev)
+    torch.cuda.synchronize()
+    log(f"# ISS pair n={N_ISS}: sampled on the card in {time.perf_counter() - t0:.2f} s")
+    ones = torch.ones((N_ISS,), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    raw = derive_radii(a, b)
+    log(f"# ISS raw radii ({time.perf_counter() - t0:.2f} s density set-up, 2 x {N_ISS} "
+        f"points): {raw}")
+    vox = (2.0 * raw["density_src"], 2.0 * raw["density_tgt"])
+    aabb = _aabb_pair(a, ones, b, ones).cpu().numpy()
+    sx, sv, tx, tv = pre_downsample_pair(a, ones, b, ones, vox[0], vox[1], aabb=aabb)
+    t0 = time.perf_counter()
+    radii = derive_radii(sx, tx, sv, tv)
+    log(f"# pre-downsample: {N_ISS} -> {sx.shape[0]} rows/side ({int(sv.sum())}/{int(tv.sum())} "
+        f"valid, voxel {vox[0]:.4f}/{vox[1]:.4f}); radii ({time.perf_counter() - t0:.2f} s): "
+        f"{radii}")
+    records = check_iss_kernels(sx, sv, radii)
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    register_iss(a, b, ones, vp_a, vp_b, radii, vox, aabb, SEED)  # warm-up
+    torch.cuda.synchronize()
+    for r in range(REPEATS):
+        av = a + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
+        torch.cuda.synchronize()
+        times = {}
+        t0 = time.perf_counter()
+        out = register_iss(av, b, ones, vp_a, vp_b, radii, vox, aabb, SEED + r, times)
+        out["transformation"].cpu()  # waits for the device
+        dt = time.perf_counter() - t0
+        r_err, t_err, finite = pose_error(out, T_gt.cpu().numpy())
+        conv = bool(out["converged"])
+        ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
+        log(f"# ISS repeat {r} n={N_ISS}: {dt:.4f} s converged={conv} r_err={r_err:.5f} "
+            f"t_err={t_err:.4f} corr={float(out['n_correspondences']):.0f} "
+            f"inliers={int(out['inliers'])} metric={float(out['metric']):.4f} ok={ok}")
+        log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
+        assert ok, f"ISS repeat {r} failed the bench's success rule"
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"# launches in the ISS runs: {launches}")
+    assert all(n > 0 for n in launches.values()), "a kernel of the ISS path was never launched"
+    log(f"#   peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    # sizes of one repeat's working set (outside the timed region)
+    voxel_f = float(np.sqrt(np.pi * radii["feature"] ** 2 / FEATURE_NR_POINTS))
+    for which, x, v, r_iss in (("src", sx, sv, radii["iss_src"]),
+                               ("tgt", tx, tv, radii["iss_tgt"])):
+        n_kp = int(cg.iss_pass(cg.plan_grid(x, v, r_iss), r_iss)[0].sum())
+        n_sm = int(voxel_centroids_map(x, v, voxel_f)[3])
+        log(f"#   {which}: {int(v.sum())} working points, {n_kp} keypoints, "
+            f"voxel surface {n_sm} rows (voxel_f {voxel_f:.4f})")
+    return records, launches
+
+
+def iss_small_pair(dev):
+    """A 65,536-point ISS pair through the kernels and through the plain
+    versions (CPU), from one sample."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import (
+        _aabb_pair,
+        pre_downsample_pair,
+    )
+    from lidar_global_registration_tpu_torch.ops.density import derive_radii
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    cpu = torch.device("cpu")
+    a, b, vp_a, vp_b, T_gt = iss_scene(N_ISS_SMALL, cpu)
+    raw = derive_radii(a, b)
+    vox = (2.0 * raw["density_src"], 2.0 * raw["density_tgt"])
+    outs = []
+    for d in (dev, cpu):
+        ones = torch.ones((N_ISS_SMALL,), dtype=torch.bool, device=d)
+        ad, bd = a.to(d), b.to(d)
+        aabb = _aabb_pair(ad, ones, bd, ones).cpu().numpy()
+        sx, sv, tx, tv = pre_downsample_pair(ad, ones, bd, ones, vox[0], vox[1], aabb=aabb)
+        radii = derive_radii(sx, tx, sv, tv)
+        outs.append(register_iss(ad, bd, ones, vp_a.to(d), vp_b.to(d), radii, vox, aabb, SEED))
+    (rg, tg, _), (rc, tc, _) = (pose_error(o, T_gt.numpy()) for o in outs)
+    share = shared_share(*outs)
+    log(f"# small ISS pair n={N_ISS_SMALL}: kernels r_err={rg:.5f} t_err={tg:.4f} "
+        f"corr={float(outs[0]['n_correspondences']):.0f}, plain r_err={rc:.5f} t_err={tc:.4f} "
+        f"corr={float(outs[1]['n_correspondences']):.0f}, shared cluster correspondences "
+        f"{share:.4f}")
+    assert bool(outs[0]["converged"]) and bool(outs[1]["converged"])
+    assert rg < R_ERR_MAX and rc < R_ERR_MAX
+    # the two paths differ by float32 summation order (K3's saliency near the
+    # gamma gates) and atan2f (K5's bin edges); the consensus gate and the
+    # max_correspondences cap pass such differences on
+    assert share >= 0.8, share
+
+
 def main() -> int:
     import torch
 
@@ -288,9 +577,7 @@ def main() -> int:
     cpu_out = register(torch.device("cpu"), sa, sb, svp_a, svp_b, sradii, SEED)
     rg, tg, _ = pose_error(gpu_out, sT)
     rc, tc, _ = pose_error(cpu_out, sT)
-    pairs_g = set(zip(*(x.cpu().tolist() for x in gpu_out["correspondences"][:2])))
-    pairs_c = set(zip(*(x.tolist() for x in cpu_out["correspondences"][:2])))
-    share = len(pairs_g & pairs_c) / max(len(pairs_c), 1)
+    share = shared_share(gpu_out, cpu_out)
     log(f"# small pair n=4096: kernels r_err={rg:.5f} t_err={tg:.4f}, plain r_err={rc:.5f} "
         f"t_err={tc:.4f}, shared mutual correspondences {share:.4f}")
     assert bool(gpu_out["converged"]) and bool(cpu_out["converged"])
@@ -316,6 +603,20 @@ def main() -> int:
         f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
     assert finite, "large run: non-finite pose"
+
+    # the ISS route: the 10M flagship pair, then a small pair via both paths
+    iss_counters = (cellgrid.surface_cuda, cellgrid.iss_count_cuda, cellgrid.iss_saliency_cuda,
+                    cellgrid.iss_nms_cuda, cellgrid.spfh_at_cuda, cellgrid.combine_at_cuda,
+                    nn_l2.nn_l2_cuda)
+    iss_records, iss_launches = iss_phase(dev, iss_counters)
+    for rec in records:  # K1 and K7 run on both routes
+        key = {"surface": "surface_cuda", "nn_l2": "nn_l2_cuda"}.get(rec["name"])
+        if key:
+            rec["launches_iss"] = iss_launches[key]
+    for rec in iss_records:
+        rec["launches"] = iss_launches[rec["name"] + "_cuda"]
+    records += iss_records
+    iss_small_pair(dev)
 
     log(f"{gpu}")
     log(json.dumps({"kernels": records}))

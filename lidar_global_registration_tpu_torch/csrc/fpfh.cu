@@ -17,6 +17,14 @@
 // the neighbours' SPFH) / neighbour count, each 11-bin block rescaled to sum
 // 100.  The 33 sums live in registers.
 //
+// Both take an optional list of sorted query slots (the `kp` / `kp_rows`
+// forms of _fpfh_impl, cellgrid.py:1822-1827, 1848-1862): thread s then
+// computes query slots[s] instead of query s.  SPFH writes its row at the
+// query's sorted slot (the combine reads rows by slot); the combine writes
+// row s of a compacted output, zeros for a padding slot (< 0).  The slots
+// come in ascending order (SPFH) or in keypoint order (combine), so the
+// threads of a warp still mostly share cells.
+//
 // Bound on the H100: the stencil walk at the feature radius scans ~3000
 // candidates per query; SPFH is bound by the pair-feature arithmetic (a
 // sqrt, two divides and an atan2 per pair within r), combine by the 132 B
@@ -36,13 +44,14 @@ __device__ __forceinline__ int bin_of(float x) {
 
 __global__ void __launch_bounds__(kThreads)
     spfh_kernel(const float4* __restrict__ pts, const float4* __restrict__ nrm,
-                const int* __restrict__ cell_of, const int2* __restrict__ cols, int n,
-                float r2, float gx, float gy, float gz, float* __restrict__ spfh,
-                float* __restrict__ count) {
+                const int* __restrict__ cell_of, const int2* __restrict__ cols,
+                const int* __restrict__ slots, int m, float r2, float gx, float gy, float gz,
+                float* __restrict__ spfh, float* __restrict__ count) {
   __shared__ int hist[kDim * kThreads];
   const int t = threadIdx.x;
-  const int i = blockIdx.x * blockDim.x + t;
-  if (i >= n) return;  // no block-wide barrier below: each thread owns its column
+  const int s = blockIdx.x * blockDim.x + t;
+  if (s >= m) return;  // no block-wide barrier below: each thread owns its column
+  const int i = slots ? slots[s] : s;
 #pragma unroll
   for (int b = 0; b < kDim; ++b) hist[b * kThreads + t] = 0;
   const float4 q = pts[i];
@@ -97,10 +106,19 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void __launch_bounds__(kThreads)
     combine_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                   const int2* __restrict__ cols, const float* __restrict__ spfh, int n,
-                   float r2, float* __restrict__ feat, float* __restrict__ kcnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                   const int2* __restrict__ cols, const float* __restrict__ spfh,
+                   const int* __restrict__ slots, int m, float r2, float* __restrict__ feat,
+                   float* __restrict__ kcnt) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= m) return;
+  const int i = slots ? slots[s] : s;
+  float* o = feat + kDim * static_cast<size_t>(s);
+  if (i < 0) {  // padding slot of a compacted output
+#pragma unroll
+    for (int b = 0; b < kDim; ++b) o[b] = 0.f;
+    kcnt[s] = 0.f;
+    return;
+  }
   const float4 q = pts[i];
   float acc[kDim];
 #pragma unroll
@@ -119,7 +137,6 @@ __global__ void __launch_bounds__(kThreads)
   });
   const float kk = fmaxf(k, 1.f);
   const float* own = spfh + kDim * static_cast<size_t>(i);
-  float* o = feat + kDim * static_cast<size_t>(i);
 #pragma unroll
   for (int blk = 0; blk < 3; ++blk) {
     float f[kBins];
@@ -133,33 +150,38 @@ __global__ void __launch_bounds__(kThreads)
     for (int b = 0; b < kBins; ++b)
       o[blk * kBins + b] = s > 0.f ? 100.f * f[b] / fmaxf(s, 1e-30f) : f[b];
   }
-  kcnt[i] = k;
+  kcnt[s] = k;
 }
 
 }  // namespace
 
 // pts, nrm f32[N,4] sorted xyz / normals; cell_of i32[n]; cols
-// i32[n_cells,9,2]; (gx, gy, gz) the AABB centre; spfh f32[n,33]; count f32[n].
+// i32[n_cells,9,2]; slots i32[m] sorted query slots, or null for the m = n
+// queries 0..n-1; (gx, gy, gz) the AABB centre; spfh f32[n,33] and count
+// f32[n] are written at the queries' slots only.
 extern "C" int lgr_spfh(const void* pts, const void* nrm, const void* cell_of, const void* cols,
-                        int n, float r2, float gx, float gy, float gz, void* spfh, void* count,
-                        void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+                        const void* slots, int m, float r2, float gx, float gy, float gz,
+                        void* spfh, void* count, void* stream) {
+  const int blocks = (m + kThreads - 1) / kThreads;
   spfh_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const float4*>(nrm),
-      static_cast<const int*>(cell_of), static_cast<const int2*>(cols), n, r2, gx, gy, gz,
-      static_cast<float*>(spfh), static_cast<float*>(count));
+      static_cast<const int*>(cell_of), static_cast<const int2*>(cols),
+      static_cast<const int*>(slots), m, r2, gx, gy, gz, static_cast<float*>(spfh),
+      static_cast<float*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
-// spfh f32[n,33] from lgr_spfh; feat f32[n,33]; kcnt f32[n] neighbours at
-// 0 < d2 <= r2.
+// spfh f32[n,33] from lgr_spfh; slots i32[m] sorted query slots (< 0:
+// padding), or null for the m = n queries 0..n-1; feat f32[m,33]; kcnt
+// f32[m] neighbours at 0 < d2 <= r2.
 extern "C" int lgr_combine(const void* pts, const void* cell_of, const void* cols,
-                           const void* spfh, int n, float r2, void* feat, void* kcnt,
-                           void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+                           const void* spfh, const void* slots, int m, float r2, void* feat,
+                           void* kcnt, void* stream) {
+  const int blocks = (m + kThreads - 1) / kThreads;
   combine_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const float*>(spfh), n, r2,
-      static_cast<float*>(feat), static_cast<float*>(kcnt));
+      static_cast<const int2*>(cols), static_cast<const float*>(spfh),
+      static_cast<const int*>(slots), m, r2, static_cast<float*>(feat),
+      static_cast<float*>(kcnt));
   return static_cast<int>(cudaGetLastError());
 }

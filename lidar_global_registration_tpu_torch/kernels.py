@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc into ONE shared library with a plain
-C interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds).  The library is built at first use into `_build/`, under a name
-that carries the hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+All `csrc/*.cu` files compile with nvcc (one process per source, in
+parallel) into ONE shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers, so the build takes seconds).  The library is
+built at first use into `_build/`, under a name that carries the hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.
 
 Every C entry point takes device pointers and the stream as `void*`, ints
 and floats by value, launches on that stream without synchronising, and
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
     # no FMA contraction: the radius tests and pair features then round
     # exactly like the plain PyTorch versions they are checked against
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,10 +40,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # pts, cell_of, cols, oid, n, r2, out8, nn_d, nn_id, stream
     "lgr_surface": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
-    # pts, nrm, cell_of, cols, n, r2, gx, gy, gz, spfh, cnt, stream
-    "lgr_spfh": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
-    # pts, cell_of, cols, spfh, n, r2, feat, kcnt, stream
-    "lgr_combine": (_P, _P, _P, _P, _I, _F, _P, _P, _P),
+    # pts, cell_of, cols, n, r2, count, stream
+    "lgr_iss_count": (_P, _P, _P, _I, _F, _P, _P),
+    # pts, cell_of, cols, count, n, r2, gamma21, gamma32, sal, ok, nnb, stream
+    "lgr_iss_saliency": (_P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
+    # pts, cell_of, cols, sal, ok, n, r2, min_nb, kp, stream
+    "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
+    # pts, nrm, cell_of, cols, slots (or 0), m, r2, gx, gy, gz, spfh, cnt, stream
+    "lgr_spfh": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
+    # pts, cell_of, cols, spfh, slots (or 0), m, r2, feat, kcnt, stream
+    "lgr_combine": (_P, _P, _P, _P, _P, _I, _F, _P, _P, _P),
     # query, train, qn, tn, nq, nt, d, best_d2, best_i, stream
     "lgr_nn_l2": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
@@ -75,24 +82,37 @@ def library_path() -> Path:
 
 
 def build(out: Path, verbose: bool = False) -> tuple[float, str]:
-    """Compile every csrc/*.cu into `out`.  Returns (seconds nvcc took, its
+    """Compile every csrc/*.cu into `out`: one nvcc per source, all started
+    together, then one link.  Returns (wall seconds of the build, nvcc's
     output); verbose adds ptxas's per-kernel register and spill report."""
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
     extra = ["-Xptxas", "-v"] if verbose else []
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return seconds, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, f.stem + ".o") for f in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        logs, failed = [], []
+        for f, proc in zip(cu, procs):
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"{f.name} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, out.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return time.perf_counter() - t0, "".join(logs) + proc.stdout + proc.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-"""Cell-list neighbour passes: surface (normals, density) and FPFH.
+"""Cell-list neighbour passes: surface (normals, density), ISS keypoints
+and FPFH.
 
 The counterpart of lidar_global_registration_tpu/ops/pallas/cellgrid.py,
 laid out for the H100 instead of the TPU:
@@ -9,8 +10,9 @@ laid out for the H100 instead of the TPU:
           of its stencil, each a contiguous [start, end) range of the sorted
           order (z is the fastest key axis), found with searchsorted.
   passes: one CUDA thread per sorted query walks its cell's 9 ranges
-          (csrc/surface.cu, csrc/fpfh.cu).  Neighbouring threads of a warp
-          sit in one cell, so their candidate loads hit the same lines.
+          (csrc/surface.cu, csrc/iss.cu, csrc/fpfh.cu).  Neighbouring
+          threads of a warp sit in one cell, so their candidate loads hit
+          the same lines.
 
 Every kernel has a plain PyTorch version here that walks the same plan
 with padded candidate blocks over query chunks.  A wrapper runs the plain
@@ -129,10 +131,11 @@ def _unsort(plan: GridPlan, sorted_rows: torch.Tensor, fill=0.0) -> torch.Tensor
     return out
 
 
-def candidates(plan: GridPlan, q0: int, q1: int):
-    """Padded candidate block of sorted queries [q0, q1): (ids i64[m, L],
-    ok bool[m, L]) — every point of the 9 stencil columns, in column order."""
-    cols = plan.cols[plan.cell_of[q0:q1].long()].long()  # [m, 9, 2]
+def candidates_at(plan: GridPlan, slots: torch.Tensor):
+    """Padded candidate block of the sorted queries `slots` (i64[m]):
+    (ids i64[m, L], ok bool[m, L]) — every point of the 9 stencil columns,
+    in column order."""
+    cols = plan.cols[plan.cell_of[slots].long()].long()  # [m, 9, 2]
     start = cols[..., 0]
     ln = cols[..., 1] - start
     cum = ln.cumsum(1)
@@ -146,15 +149,71 @@ def candidates(plan: GridPlan, q0: int, q1: int):
     return torch.where(ok, ids, 0), ok
 
 
+def candidates(plan: GridPlan, q0: int, q1: int):
+    """candidates_at for the sorted queries [q0, q1)."""
+    return candidates_at(plan, torch.arange(q0, q1, device=plan.pts.device))
+
+
+_CHUNK_BLOCK = 256  # queries per block when grouping queries into chunks
+
+
+def _chunk_ranges(lens: torch.Tensor):
+    """[a, b) ranges over queries with stencil sizes `lens` whose padded
+    candidate blocks (rows x the widest row) hold about _CHUNK_PAIRS slots.
+    Queries come in cell order, so a block's rows are alike; the blocks'
+    widest rows are read to the host once and grouped greedily."""
+    m = lens.shape[0]
+    if m == 0:
+        return []
+    nb = -(-m // _CHUNK_BLOCK)
+    pad = torch.zeros(nb * _CHUNK_BLOCK - m, dtype=lens.dtype, device=lens.device)
+    widest = torch.cat([lens, pad]).view(nb, _CHUNK_BLOCK).amax(1).clamp_min(1).tolist()
+    out, a, cur = [], 0, 0
+    for blk, w in enumerate(widest):
+        b = blk * _CHUNK_BLOCK
+        if b > a and (b + _CHUNK_BLOCK - a) * max(cur, w) > _CHUNK_PAIRS:
+            out.append((a, b))
+            a, cur = b, 0
+        cur = max(cur, w)
+    out.append((a, m))
+    return out
+
+
+def _stencil_lens(plan: GridPlan, slots: torch.Tensor | None = None) -> torch.Tensor:
+    """Candidates in the stencil of each sorted query (of `slots`, or all)."""
+    per_cell = (plan.cols[..., 1] - plan.cols[..., 0]).sum(1)
+    cell = plan.cell_of if slots is None else plan.cell_of[slots]
+    return per_cell[cell.long()]
+
+
 def _query_chunks(plan: GridPlan):
-    """Query ranges whose candidate blocks hold about _CHUNK_PAIRS slots."""
+    """Ranges of sorted queries, about _CHUNK_PAIRS candidate slots each."""
     if plan.n_valid == 0:
-        return
-    lens = (plan.cols[..., 1] - plan.cols[..., 0]).sum(1)
-    widest = max(int(lens.max()), 1)
-    step = max(1, _CHUNK_PAIRS // widest)
-    for q0 in range(0, plan.n_valid, step):
-        yield q0, min(q0 + step, plan.n_valid)
+        return []
+    return _chunk_ranges(_stencil_lens(plan))
+
+
+def _slot_chunks(plan: GridPlan, slots: torch.Tensor):
+    """(position range, slot tensor) chunks of a sorted-slot list."""
+    if slots.numel() == 0:
+        return []
+    return [((a, b), slots[a:b]) for a, b in _chunk_ranges(_stencil_lens(plan, slots))]
+
+
+def _pair_d2(plan: GridPlan, slots: torch.Tensor, ids: torch.Tensor):
+    """Candidate offsets from their queries (dx, dy, dz) and d2, rounded
+    like the kernels (no FMA)."""
+    d = plan.pts[ids, :3] - plan.pts[slots, None, :3]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    return dx, dy, dz, dx * dx + dy * dy + dz * dz
+
+
+def slot_of(plan: GridPlan) -> torch.Tensor:
+    """i64[N]: sorted slot of each input row, -1 for invalid rows."""
+    N = plan.order.shape[0]
+    inv = torch.full((N,), -1, dtype=torch.int64, device=plan.order.device)
+    inv[plan.order[:plan.n_valid]] = torch.arange(plan.n_valid, device=plan.order.device)
+    return inv
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +397,157 @@ def surface_pass(plan: GridPlan, normal_radius: float, viewpoint=None):
 
 
 # ---------------------------------------------------------------------------
+# K2-K4 · ISS keypoints: radius count, weighted scatter saliency, NMS
+# ---------------------------------------------------------------------------
+def _sorted_chunks(plan: GridPlan):
+    dev = plan.pts.device
+    for a, b in _query_chunks(plan):
+        sl = torch.arange(a, b, device=dev)
+        ids, ok = candidates_at(plan, sl)
+        yield a, b, sl, ids, ok
+
+
+def iss_count_plain(plan: GridPlan, r2: float) -> torch.Tensor:
+    """Plain version of csrc/iss.cu `iss_count_kernel` (_iss_count_cell):
+    per sorted query the points within r, self included.  i32[n]."""
+    count = torch.zeros((plan.n_valid,), dtype=torch.int32, device=plan.pts.device)
+    for a, b, sl, ids, ok in _sorted_chunks(plan):
+        d2 = _pair_d2(plan, sl, ids)[3]
+        count[a:b] = (ok & (d2 <= r2)).sum(1).to(torch.int32)
+    return count
+
+
+def iss_saliency_plain(plan: GridPlan, r2: float, count: torch.Tensor,
+                       gamma21: float, gamma32: float):
+    """Plain version of csrc/iss.cu `iss_saliency_kernel`
+    (_iss_saliency_cell): the scatter sum w (c - q)(c - q)^T / sum w over
+    the neighbours within r (self excluded by d2 > 0), each weighted by
+    1 / its K2 count; eigenvalues l3 <= l2 <= l1.  A query passes where
+    l2 / l1 < gamma21, l3 / l2 < gamma32 and l3 > 0.  Returns (saliency
+    f32[n] = l3 where it passes else 0, ok bool[n], neighbours i32[n])."""
+    dev = plan.pts.device
+    n = plan.n_valid
+    sal = torch.zeros((n,), dtype=torch.float32, device=dev)
+    okq = torch.zeros((n,), dtype=torch.bool, device=dev)
+    nnb = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for a, b, sl, ids, ok in _sorted_chunks(plan):
+        dx, dy, dz, d2 = _pair_d2(plan, sl, ids)
+        nb = ok & (d2 > 0.0) & (d2 <= r2)
+        w = torch.where(nb, 1.0 / count[ids].to(torch.float32).clamp_min(1.0), 0.0)
+        ws = w.sum(1)
+        wdx, wdy, wdz = w * dx, w * dy, w * dz
+        wsafe = ws.clamp_min(1e-30)
+        l3, l2, l1, _vx, _vy, _vz = smallest_eig3(
+            (wdx * dx).sum(1) / wsafe, (wdx * dy).sum(1) / wsafe,
+            (wdx * dz).sum(1) / wsafe, (wdy * dy).sum(1) / wsafe,
+            (wdy * dz).sum(1) / wsafe, (wdz * dz).sum(1) / wsafe,
+        )
+        good = ((ws > 0) & (l2 / l1.clamp_min(1e-30) < gamma21)
+                & (l3 / l2.clamp_min(1e-30) < gamma32) & (l3 > 0))
+        sal[a:b] = torch.where(good, l3, 0.0)
+        okq[a:b] = good
+        nnb[a:b] = nb.sum(1).to(torch.int32)
+    return sal, okq, nnb
+
+
+def iss_nms_plain(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+                  min_neighbors: int) -> torch.Tensor:
+    """Plain version of csrc/iss.cu `iss_nms_kernel` (_iss_nms_cell): a
+    keypoint passed K3, has at least min_neighbors neighbours within r
+    (self excluded) and a saliency above every neighbour's.  bool[n]."""
+    kp = torch.zeros((plan.n_valid,), dtype=torch.bool, device=plan.pts.device)
+    for a, b, sl, ids, ok in _sorted_chunks(plan):
+        d2 = _pair_d2(plan, sl, ids)[3]
+        nb = ok & (d2 > 0.0) & (d2 <= r2)
+        nb_max = torch.where(nb, sal[ids], -BIG).amax(1)
+        kp[a:b] = okq[a:b] & (nb.sum(1) >= min_neighbors) & (sal[a:b] > nb_max)
+    return kp
+
+
+def _stream(plan: GridPlan):
+    return torch.cuda.current_stream(plan.pts.device).cuda_stream
+
+
+def iss_count_cuda(plan: GridPlan, r2: float) -> torch.Tensor:
+    """K2 · csrc/iss.cu `iss_count_kernel`: same contract as iss_count_plain."""
+    n = plan.n_valid
+    count = torch.empty((n,), dtype=torch.int32, device=plan.pts.device)
+    if n == 0:
+        return count
+    _check_plan(plan)
+    kernels.launch("lgr_iss_count", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), n, r2, count.data_ptr(), _stream(plan))
+    iss_count_cuda.launches += 1
+    return count
+
+
+iss_count_cuda.launches = 0
+
+
+def iss_saliency_cuda(plan: GridPlan, r2: float, count: torch.Tensor,
+                      gamma21: float, gamma32: float):
+    """K3 · csrc/iss.cu `iss_saliency_kernel`: same contract as
+    iss_saliency_plain."""
+    n = plan.n_valid
+    dev = plan.pts.device
+    sal = torch.empty((n,), dtype=torch.float32, device=dev)
+    okq = torch.empty((n,), dtype=torch.bool, device=dev)
+    nnb = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return sal, okq, nnb
+    _check_plan(plan)
+    kernels.check(count, torch.int32, (n,), "count")
+    kernels.launch("lgr_iss_saliency", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), count.data_ptr(), n, r2, gamma21, gamma32,
+                   sal.data_ptr(), okq.data_ptr(), nnb.data_ptr(), _stream(plan))
+    iss_saliency_cuda.launches += 1
+    return sal, okq, nnb
+
+
+iss_saliency_cuda.launches = 0
+
+
+def iss_nms_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+                 min_neighbors: int) -> torch.Tensor:
+    """K4 · csrc/iss.cu `iss_nms_kernel`: same contract as iss_nms_plain."""
+    n = plan.n_valid
+    kp = torch.empty((n,), dtype=torch.bool, device=plan.pts.device)
+    if n == 0:
+        return kp
+    _check_plan(plan)
+    kernels.check(sal, torch.float32, (n,), "sal")
+    kernels.check(okq, torch.bool, (n,), "ok")
+    kernels.launch("lgr_iss_nms", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), sal.data_ptr(), okq.data_ptr(), n, r2,
+                   int(min_neighbors), kp.data_ptr(), _stream(plan))
+    iss_nms_cuda.launches += 1
+    return kp
+
+
+iss_nms_cuda.launches = 0
+
+
+def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
+             gamma32: float = 0.975, min_neighbors: int = 4):
+    """ISS keypoints on a plan (cellgrid.iss_pass: the ISS half of
+    _surface_iss_impl, cellgrid.py:1706-1727): K2 counts, K3 saliency, K4
+    non-maximum suppression, each a pass over the plan (every pass needs
+    its predecessor's result at every candidate).  The kernels on CUDA,
+    the plain versions on CPU.  Returns (kp bool[N], saliency f32[N]) in
+    input order, False / 0 at invalid rows."""
+    r2 = _f32_square(iss_radius)
+    if plan.pts.is_cuda:
+        count = iss_count_cuda(plan, r2)
+        sal, okq, _nnb = iss_saliency_cuda(plan, r2, count, gamma21, gamma32)
+        kp = iss_nms_cuda(plan, r2, sal, okq, min_neighbors)
+    else:
+        count = iss_count_plain(plan, r2)
+        sal, okq, _nnb = iss_saliency_plain(plan, r2, count, gamma21, gamma32)
+        kp = iss_nms_plain(plan, r2, sal, okq, min_neighbors)
+    return _unsort(plan, kp, fill=False) & plan.valid, _unsort(plan, sal)
+
+
+# ---------------------------------------------------------------------------
 # K5 · SPFH: Darboux pair features binned 3 x 11, x 100 / count
 # ---------------------------------------------------------------------------
 def pair_feature_bins(q, qn, c, cn, centre, r2):
@@ -386,61 +596,96 @@ def _hist_scale(cnt):
     return torch.where(cnt > 0, 100.0 / cnt.clamp_min(1.0), 0.0)
 
 
-def spfh_plain(plan: GridPlan, r2: float, centre: torch.Tensor):
+def _spfh_rows(plan: GridPlan, r2: float, centre: torch.Tensor, slots: torch.Tensor):
+    """SPFH rows [m, 33] and pair counts [m] of the sorted queries `slots`."""
+    dev = plan.pts.device
+    ids, ok = candidates_at(plan, slots)
+    m = slots.shape[0]
+    b1, b2, b3, okp = pair_feature_bins(
+        plan.pts[slots, None, :3], plan.nrm[slots, None, :3],
+        plan.pts[ids, :3], plan.nrm[ids, :3], centre, r2,
+    )
+    okp = okp & ok
+    hist = torch.zeros((m, DIM), dtype=torch.float32, device=dev)
+    row = torch.arange(m, device=dev)[:, None].expand_as(b1)
+    for blk, b in enumerate((b1, b2, b3)):
+        flat = (row * DIM + blk * NR_BINS + b)[okp]
+        hist.view(-1).index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    cnt = okp.sum(1).to(torch.float32)
+    return hist * _hist_scale(cnt)[:, None], cnt
+
+
+def spfh_plain(plan: GridPlan, r2: float, centre: torch.Tensor, slots=None):
     """Plain version of csrc/fpfh.cu `spfh_kernel`: per sorted query the
-    3 x 11 histogram of its pair features x 100 / count.  Returns
-    (spfh f32[n, 33], count f32[n])."""
+    3 x 11 histogram of its pair features x 100 / count.  With `slots`
+    (i64[m] sorted slots) only those queries are computed and every other
+    row stays 0.  Returns (spfh f32[n, 33], count f32[n])."""
     dev = plan.pts.device
     n = plan.n_valid
     spfh = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
     count = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for q0, q1 in _query_chunks(plan):
-        ids, ok = candidates(plan, q0, q1)
-        m = q1 - q0
-        b1, b2, b3, okp = pair_feature_bins(
-            plan.pts[q0:q1, None, :3], plan.nrm[q0:q1, None, :3],
-            plan.pts[ids, :3], plan.nrm[ids, :3], centre, r2,
-        )
-        okp = okp & ok
-        hist = torch.zeros((m, DIM), dtype=torch.float32, device=dev)
-        row = torch.arange(m, device=dev)[:, None].expand_as(b1)
-        for blk, b in enumerate((b1, b2, b3)):
-            flat = (row * DIM + blk * NR_BINS + b)[okp]
-            hist.view(-1).index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
-        cnt = okp.sum(1).to(torch.float32)
-        spfh[q0:q1] = hist * _hist_scale(cnt)[:, None]
-        count[q0:q1] = cnt
+    if slots is None:
+        chunks = [(None, torch.arange(a, b, device=dev)) for a, b in _query_chunks(plan)]
+    else:
+        chunks = _slot_chunks(plan, slots)
+    for _pos, sl in chunks:
+        spfh[sl], count[sl] = _spfh_rows(plan, r2, centre, sl)
+    return spfh, count
+
+
+def _launch_spfh(plan: GridPlan, r2: float, centre: torch.Tensor, slots, m: int):
+    n = plan.n_valid
+    dev = plan.pts.device
+    spfh = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
+    count = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if m == 0:
+        return spfh, count
+    _check_plan(plan)
+    kernels.check(plan.nrm, torch.float32, (plan.pts.shape[0], 4), "nrm")
+    if slots is not None:
+        kernels.check(slots, torch.int32, (m,), "slots")
+    gx, gy, gz = (float(v) for v in centre.tolist())
+    kernels.launch(
+        "lgr_spfh", plan.pts.data_ptr(), plan.nrm.data_ptr(),
+        plan.cell_of.data_ptr(), plan.cols.data_ptr(),
+        0 if slots is None else slots.data_ptr(), m, r2, gx, gy, gz,
+        spfh.data_ptr(), count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
     return spfh, count
 
 
 def spfh_cuda(plan: GridPlan, r2: float, centre: torch.Tensor):
-    """K5 · csrc/fpfh.cu `spfh_kernel`: same contract as spfh_plain."""
-    n = plan.n_valid
-    dev = plan.pts.device
-    spfh = torch.empty((n, DIM), dtype=torch.float32, device=dev)
-    count = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n == 0:
-        return spfh, count
-    _check_plan(plan)
-    kernels.check(plan.nrm, torch.float32, (plan.pts.shape[0], 4), "nrm")
-    gx, gy, gz = (float(v) for v in centre.tolist())
-    kernels.launch(
-        "lgr_spfh", plan.pts.data_ptr(), plan.nrm.data_ptr(),
-        plan.cell_of.data_ptr(), plan.cols.data_ptr(), n, r2, gx, gy, gz,
-        spfh.data_ptr(), count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    spfh_cuda.launches += 1
-    return spfh, count
+    """K5 · csrc/fpfh.cu `spfh_kernel` over every query: same contract as
+    spfh_plain without slots."""
+    out = _launch_spfh(plan, r2, centre, None, plan.n_valid)
+    if plan.n_valid:
+        spfh_cuda.launches += 1
+    return out
 
 
 spfh_cuda.launches = 0
 
 
-def spfh_sorted(plan: GridPlan, r2: float, centre: torch.Tensor):
+def spfh_at_cuda(plan: GridPlan, r2: float, centre: torch.Tensor, slots: torch.Tensor):
+    """K5 subset form · `spfh_kernel` over the sorted queries `slots`: same
+    contract as spfh_plain with slots."""
+    sl = slots.to(torch.int32).contiguous()
+    out = _launch_spfh(plan, r2, centre, sl, sl.shape[0])
+    if sl.shape[0]:
+        spfh_at_cuda.launches += 1
+    return out
+
+
+spfh_at_cuda.launches = 0
+
+
+def spfh_sorted(plan: GridPlan, r2: float, centre: torch.Tensor, slots=None):
     """K5 on the plan's device: the kernel on CUDA, the plain version on CPU."""
     if plan.pts.is_cuda:
-        return spfh_cuda(plan, r2, centre)
-    return spfh_plain(plan, r2, centre)
+        if slots is None:
+            return spfh_cuda(plan, r2, centre)
+        return spfh_at_cuda(plan, r2, centre, slots)
+    return spfh_plain(plan, r2, centre, slots)
 
 
 # ---------------------------------------------------------------------------
@@ -457,53 +702,88 @@ def _combine_finish(own, wsum, kcnt):
     return torch.cat(blocks, 1)
 
 
-def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor):
+def _combine_rows(plan: GridPlan, r2: float, spfh: torch.Tensor, slots: torch.Tensor):
+    ids, ok = candidates_at(plan, slots)
+    _dx, _dy, _dz, d2 = _pair_d2(plan, slots, ids)
+    nb = ok & (d2 > 0.0) & (d2 <= r2)
+    w = torch.where(nb, 1.0 / d2.clamp_min(1e-30), 0.0)
+    wsum = (spfh[ids] * w[..., None]).sum(1)
+    k = nb.sum(1).to(torch.float32)
+    return _combine_finish(spfh[slots], wsum, k), k
+
+
+def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor, slots=None):
     """Plain version of csrc/fpfh.cu `combine_kernel` (cellgrid._combine_cell).
-    Returns (feat f32[n, 33], neighbour count f32[n])."""
+    Without `slots`: (feat f32[n, 33], neighbour count f32[n]) per sorted
+    query.  With `slots` (i64[M] sorted slots, -1 for padding): compacted
+    rows (feat f32[M, 33], count f32[M]), 0 at the padding."""
     dev = plan.pts.device
-    n = plan.n_valid
-    feat = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
-    kcnt = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for q0, q1 in _query_chunks(plan):
-        ids, ok = candidates(plan, q0, q1)
-        d = plan.pts[ids, :3] - plan.pts[q0:q1, None, :3]
-        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-        nb = ok & (d2 > 0.0) & (d2 <= r2)
-        w = torch.where(nb, 1.0 / d2.clamp_min(1e-30), 0.0)
-        wsum = (spfh[ids] * w[..., None]).sum(1)
-        k = nb.sum(1).to(torch.float32)
-        feat[q0:q1] = _combine_finish(spfh[q0:q1], wsum, k)
-        kcnt[q0:q1] = k
+    if slots is None:
+        n = plan.n_valid
+        feat = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
+        kcnt = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for a, b in _query_chunks(plan):
+            feat[a:b], kcnt[a:b] = _combine_rows(plan, r2, spfh, torch.arange(a, b, device=dev))
+        return feat, kcnt
+    M = slots.shape[0]
+    feat = torch.zeros((M, DIM), dtype=torch.float32, device=dev)
+    kcnt = torch.zeros((M,), dtype=torch.float32, device=dev)
+    real = torch.nonzero(slots >= 0).squeeze(1)
+    for (a, b), sl in _slot_chunks(plan, slots[real]):
+        feat[real[a:b]], kcnt[real[a:b]] = _combine_rows(plan, r2, spfh, sl)
+    return feat, kcnt
+
+
+def _launch_combine(plan: GridPlan, r2: float, spfh: torch.Tensor, slots, m: int):
+    dev = plan.pts.device
+    feat = torch.empty((m, DIM), dtype=torch.float32, device=dev)
+    kcnt = torch.empty((m,), dtype=torch.float32, device=dev)
+    if m == 0:
+        return feat, kcnt
+    _check_plan(plan)
+    kernels.check(spfh, torch.float32, (plan.n_valid, DIM), "spfh")
+    if slots is not None:
+        kernels.check(slots, torch.int32, (m,), "slots")
+    kernels.launch(
+        "lgr_combine", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+        plan.cols.data_ptr(), spfh.data_ptr(), 0 if slots is None else slots.data_ptr(),
+        m, r2, feat.data_ptr(), kcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
     return feat, kcnt
 
 
 def combine_cuda(plan: GridPlan, r2: float, spfh: torch.Tensor):
-    """K6 · csrc/fpfh.cu `combine_kernel`: same contract as combine_plain."""
-    n = plan.n_valid
-    dev = plan.pts.device
-    feat = torch.empty((n, DIM), dtype=torch.float32, device=dev)
-    kcnt = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n == 0:
-        return feat, kcnt
-    _check_plan(plan)
-    kernels.check(spfh, torch.float32, (n, DIM), "spfh")
-    kernels.launch(
-        "lgr_combine", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-        plan.cols.data_ptr(), spfh.data_ptr(), n, r2,
-        feat.data_ptr(), kcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    combine_cuda.launches += 1
-    return feat, kcnt
+    """K6 · csrc/fpfh.cu `combine_kernel` over every query: same contract
+    as combine_plain without slots."""
+    out = _launch_combine(plan, r2, spfh, None, plan.n_valid)
+    if plan.n_valid:
+        combine_cuda.launches += 1
+    return out
 
 
 combine_cuda.launches = 0
 
 
-def combine_sorted(plan: GridPlan, r2: float, spfh: torch.Tensor):
+def combine_at_cuda(plan: GridPlan, r2: float, spfh: torch.Tensor, slots: torch.Tensor):
+    """K6 subset form · `combine_kernel` at the sorted queries `slots`
+    (-1 = padding), compacted: same contract as combine_plain with slots."""
+    sl = slots.to(torch.int32).contiguous()
+    out = _launch_combine(plan, r2, spfh, sl, sl.shape[0])
+    if sl.shape[0]:
+        combine_at_cuda.launches += 1
+    return out
+
+
+combine_at_cuda.launches = 0
+
+
+def combine_sorted(plan: GridPlan, r2: float, spfh: torch.Tensor, slots=None):
     """K6 on the plan's device: the kernel on CUDA, the plain version on CPU."""
     if plan.pts.is_cuda:
-        return combine_cuda(plan, r2, spfh)
-    return combine_plain(plan, r2, spfh)
+        if slots is None:
+            return combine_cuda(plan, r2, spfh)
+        return combine_at_cuda(plan, r2, spfh, slots)
+    return combine_plain(plan, r2, spfh, slots)
 
 
 def aabb_centre(plan: GridPlan) -> torch.Tensor:
@@ -514,16 +794,58 @@ def aabb_centre(plan: GridPlan) -> torch.Tensor:
     return 0.5 * (p.amin(0) + p.amax(0))
 
 
-def fpfh_pass(plan: GridPlan, radius: float):
-    """FPFH over every point of a plan whose normals are set (cellgrid.fpfh_pass
-    without kp / kp_rows): SPFH (K5) then the weighted combine (K6).
-    Returns (feat f32[N, 33], feat_valid bool[N]) in input order,
-    feat_valid = valid & (neighbour count > 0)."""
+def stencil_slots(plan: GridPlan, slots: torch.Tensor) -> torch.Tensor:
+    """Sorted slots (ascending) of every point in the 27-cell stencil of a
+    cell that holds one of the sorted queries `slots`: the union of those
+    cells' CSR column ranges (the `kp` stencil of _fpfh_impl's SPFH pass)."""
+    dev = plan.pts.device
+    cells = torch.unique(plan.cell_of[slots])
+    cols = plan.cols[cells.long()].reshape(-1, 2).long()
+    diff = torch.zeros((plan.n_valid + 1,), dtype=torch.int32, device=dev)
+    one = torch.ones((cols.shape[0],), dtype=torch.int32, device=dev)
+    diff.index_add_(0, cols[:, 0], one)
+    diff.index_add_(0, cols[:, 1], -one)
+    return torch.nonzero(diff.cumsum(0)[:plan.n_valid] > 0).squeeze(1)
+
+
+def fpfh_pass(plan: GridPlan, radius: float, kp=None, kp_rows=None):
+    """FPFH on a plan whose normals are set (cellgrid.fpfh_pass): SPFH (K5)
+    then the weighted combine (K6).
+
+    kp (bool[N] input order): SPFH runs only on the points in the 27-cell
+    stencil of a keypoint's cell, which holds every point the combine at a
+    keypoint reads; descriptors are then exact at keypoint rows and 0
+    elsewhere.  kp_rows (i64[M] input rows, repeats allowed, >= N =
+    padding): the combine runs only there and returns compacted rows.
+
+    Returns (feat f32[N, 33], feat_valid bool[N]) in input order, or
+    (feat f32[M, 33], feat_valid bool[M]) with kp_rows; feat_valid = valid
+    row & (neighbour count > 0), and feat is 0 where it is False."""
+    dev = plan.pts.device
+    N = plan.order.shape[0]
     r2 = _f32_square(radius)
-    spfh, _count = spfh_sorted(plan, r2, aabb_centre(plan))
-    feat_s, kcnt_s = combine_sorted(plan, r2, spfh)
-    feat = _unsort(plan, feat_s)
-    kcnt = _unsort(plan, kcnt_s)
+    centre = aabb_centre(plan)
+    inv = slot_of(plan) if (kp is not None or kp_rows is not None) else None
+    if kp is None:
+        spfh, _count = spfh_sorted(plan, r2, centre)
+    else:
+        kp_slots = torch.nonzero(kp[plan.order[:plan.n_valid]]).squeeze(1)
+        spfh, _count = spfh_sorted(plan, r2, centre, stencil_slots(plan, kp_slots))
+    if kp_rows is not None:
+        srt = torch.where(kp_rows < N, inv[kp_rows.clamp_max(N - 1)], -1)
+        feat, kcnt = combine_sorted(plan, r2, spfh, srt)
+        fv = (srt >= 0) & (kcnt > 0)
+        return torch.where(fv[:, None], feat, 0.0), fv
+    if kp is None:
+        feat_s, kcnt_s = combine_sorted(plan, r2, spfh)
+        feat = _unsort(plan, feat_s)
+        kcnt = _unsort(plan, kcnt_s)
+    else:
+        rows = torch.nonzero(kp & plan.valid).squeeze(1)
+        feat_k, kcnt_k = combine_sorted(plan, r2, spfh, inv[rows])
+        feat = torch.zeros((N, DIM), dtype=torch.float32, device=dev)
+        kcnt = torch.zeros((N,), dtype=torch.float32, device=dev)
+        feat[rows], kcnt[rows] = feat_k, kcnt_k
     feat_valid = plan.valid & (kcnt > 0)
     return torch.where(feat_valid[:, None], feat, 0.0), feat_valid
 

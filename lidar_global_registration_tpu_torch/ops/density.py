@@ -7,9 +7,15 @@ non-self neighbour; the cloud density is the 0.8-quantile of the k=8
 smoothed densities with the reference's nth_element indexing
 (common.cpp:202-208, 531-547).
 
-The JAX package finds the neighbours with a grid-hash envelope search; here
-an exact brute-force kNN in query chunks takes its place.  This is set-up
-work run once per scene, not a kernel of the registration path.
+The neighbours come from the cell-list plan of ops/cellgrid.py, as the JAX
+package's come from its grid hash (density.knn_distances,
+_auto_cell_size): an automatic cell from the cloud's extent, doubled while
+fewer than 99.9 % of the points have their k-th neighbour within one cell.
+A row whose k-th neighbour lies within the cell is exact (every point that
+near is in the 27-cell stencil); only the rows not yet exact are queried
+again at the doubled cell, and the few left after the last doubling are
+finished against the whole cloud.  So the result equals a brute-force
+kNN.  This is set-up work run once per scene, in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -17,36 +23,90 @@ import math
 
 import torch
 
+from lidar_global_registration_tpu_torch.ops import cellgrid
 from lidar_global_registration_tpu_torch.types import (
     FEATURE_NR_POINTS,
     NORMAL_NR_POINTS,
 )
 
+_BRUTE_CHUNK_PAIRS = 1 << 26  # distance slots per query chunk of the finish
 
-def knn_nonself(pts: torch.Tensor, k: int, chunk: int = 1024):
-    """Exact k nearest neighbours at nonzero distance among `pts` [n, 3].
 
-    Self-exclusion is by zero distance (the framework-wide include_self=False
-    convention, ops/grid.py).  Returns (dist f32[n, k] ascending, idx
-    i64[n, k]); rows with fewer than k such neighbours carry inf."""
+def _auto_cell(pts: torch.Tensor, k: int) -> float:
+    """density._auto_cell_size: points live on 2D surfaces, so the k-NN
+    radius scales like spacing * sqrt(k / pi), spacing ~ diag / sqrt(n)."""
+    n = max(pts.shape[0], 1)
+    diag = float((pts.amax(0) - pts.amin(0)).pow(2).sum().sqrt()) if pts.shape[0] else 0.0
+    spacing = diag / max(math.sqrt(n), 1.0)
+    return max(spacing * math.sqrt(max(k, 2) / math.pi) * 1.5, 1e-12)
+
+
+def _knn_topk(d2: torch.Tensor, k: int):
+    """Ascending k smallest d2 per row (self and absent = inf), padded with
+    inf / 0 where a row has fewer than k columns."""
+    vals, ids = torch.topk(d2, min(k, d2.shape[1]), dim=1, largest=False, sorted=True)
+    if vals.shape[1] < k:
+        pad = k - vals.shape[1]
+        vals = torch.nn.functional.pad(vals, (0, pad), value=torch.inf)
+        ids = torch.nn.functional.pad(ids, (0, pad), value=0)
+    return vals, ids
+
+
+def _knn_brute(pts: torch.Tensor, rows: torch.Tensor, k: int):
+    """Exact non-self kNN of pts[rows] against the whole cloud."""
     n = pts.shape[0]
-    dist = torch.empty((n, k), dtype=torch.float32, device=pts.device)
-    idx = torch.empty((n, k), dtype=torch.int64, device=pts.device)
+    dist = torch.empty((rows.shape[0], k), dtype=torch.float32, device=pts.device)
+    idx = torch.empty((rows.shape[0], k), dtype=torch.int64, device=pts.device)
     cx, cy, cz = pts[:, 0][None, :], pts[:, 1][None, :], pts[:, 2][None, :]
-    for s in range(0, n, chunk):
-        q = pts[s:s + chunk]
-        dx = cx - q[:, 0:1]
-        dy = cy - q[:, 1:2]
-        dz = cz - q[:, 2:3]
+    chunk = max(1, _BRUTE_CHUNK_PAIRS // max(n, 1))
+    for s in range(0, rows.shape[0], chunk):
+        q = pts[rows[s:s + chunk]]
+        dx, dy, dz = cx - q[:, 0:1], cy - q[:, 1:2], cz - q[:, 2:3]
         d2 = dx * dx + dy * dy + dz * dz
-        d2 = torch.where(d2 > 0.0, d2, torch.inf)
-        vals, ids = torch.topk(d2, min(k, n), dim=1, largest=False, sorted=True)
-        if vals.shape[1] < k:  # tiny clouds: pad the missing neighbours
-            pad = k - vals.shape[1]
-            vals = torch.nn.functional.pad(vals, (0, pad), value=torch.inf)
-            ids = torch.nn.functional.pad(ids, (0, pad), value=0)
+        vals, ids = _knn_topk(torch.where(d2 > 0.0, d2, torch.inf), k)
         dist[s:s + chunk] = vals.sqrt()
         idx[s:s + chunk] = ids
+    return dist, idx
+
+
+def knn_nonself(pts: torch.Tensor, k: int, max_doublings: int = 8,
+                min_covered: float = 0.999):
+    """Exact k nearest neighbours at nonzero distance among `pts` [n, 3]
+    (density.knn_distances on the cell-list plan, see the module
+    docstring).  Self-exclusion is by zero distance (the framework-wide
+    include_self=False convention, ops/grid.py).  Returns (dist f32[n, k]
+    ascending, idx i64[n, k] input rows); rows with fewer than k such
+    neighbours carry inf."""
+    dev = pts.device
+    n = pts.shape[0]
+    dist = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
+    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    if n == 0:
+        return dist, idx
+    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    todo = torch.arange(n, device=dev)
+    cell = _auto_cell(pts, k + 1)
+    for _ in range(max_doublings):
+        plan = cellgrid.plan_grid(pts, valid, cell)
+        slots = cellgrid.slot_of(plan)[todo]
+        done = torch.zeros((todo.shape[0],), dtype=torch.bool, device=dev)
+        for (a, b), sl in cellgrid._slot_chunks(plan, slots):
+            ids, ok = cellgrid.candidates_at(plan, sl)
+            d2 = cellgrid._pair_d2(plan, sl, ids)[3]
+            vals, j = _knn_topk(torch.where(ok & (d2 > 0.0), d2, torch.inf), k)
+            dk = vals.sqrt()
+            # exact when the k-th neighbour lies within one cell
+            cov = dk[:, k - 1] <= cell
+            rows = todo[a:b][cov]
+            dist[rows] = dk[cov]
+            idx[rows] = plan.order[ids.gather(1, j)][cov]
+            done[a:b] = cov
+        todo = todo[~done]
+        if todo.shape[0] <= (1.0 - min_covered) * n:
+            break
+        cell *= 2.0
+    if todo.shape[0]:
+        dist[todo], idx[todo] = _knn_brute(pts, todo, k)
     return dist, idx
 
 

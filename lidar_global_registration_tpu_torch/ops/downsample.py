@@ -1,0 +1,90 @@
+"""Voxel-centroid downsampling (lidar_global_registration_tpu/ops/downsample.py).
+
+One int64 sort of the voxel keys and segment sums (`index_add_`) replace
+the JAX package's two routes (a 3-key lexsort with segment_sum, and a
+packed int32 key with a suffix-sum by prefix doubling, which is a TPU
+device).  What both JAX routes share, and this module keeps exactly:
+
+  - the grid anchor: the cloud's own masked min - voxel / 2 in float32
+    (or the caller's origin, voxel_centroids_packed);
+  - the key order: z-major (cz primary, then cy, then cx), so voxels come
+    out in the same order and `row_of` and the counts are equal;
+  - output rows compacted to the front in key order.
+
+Coordinates are summed as residuals against each voxel's base corner, as
+the packed JAX route does, so the centroid's rounding stays near
+ulp(voxel) whatever the scene's extent.  The residual sums accumulate in
+float64 (the CUDA `index_add_` adds atomically in no fixed order; in
+float64 the order does not show after the cast back to float32).
+"""
+from __future__ import annotations
+
+import torch
+
+_BIG = 3.0e37
+
+
+def masked_min(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-axis min of the valid rows (0 for an empty cloud), float32."""
+    lo = torch.where(valid[:, None], xyz, _BIG).amin(0)
+    return torch.where(lo < _BIG, lo, 0.0)
+
+
+def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
+               origin: torch.Tensor):
+    """Shared body: (out_xyz f32[N, 3] front-compacted centroids (0.0 on
+    the rows past them), out_valid bool[N], row_of i64[N] output row of
+    each valid input row (0 elsewhere), n_out i64[] on the device: nothing
+    here reads the device from the host)."""
+    dev = xyz.device
+    N = xyz.shape[0]
+    vox = torch.tensor(voxel, dtype=torch.float32, device=dev)
+    c = torch.floor((xyz - origin[None, :]) / vox.clamp_min(1e-30)).clamp_min(0)
+    c = c.to(torch.int64)
+    dims = torch.where(valid[:, None], c, 0).amax(0) + 1
+    # z-major like the JAX lexsort((cx, cy, cz)) (last key primary)
+    key = (c[:, 2] * dims[1] + c[:, 1]) * dims[0] + c[:, 0]
+    key = torch.where(valid, key, torch.iinfo(torch.int64).max)
+    ks, order = torch.sort(key, stable=True)
+    first = torch.ones(N, dtype=torch.bool, device=dev)
+    first[1:] = ks[1:] != ks[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    svalid = valid[order]
+    n_out = (first & svalid).sum()
+    # residuals against the voxel base corner, summed per run
+    cs = c[order].to(torch.float32)
+    base = origin[None, :] + cs * vox
+    res = torch.where(svalid[:, None], xyz[order] - base, 0.0).to(torch.float64)
+    sums = torch.zeros((N, 3), dtype=torch.float64, device=dev).index_add_(0, seg, res)
+    cnt = torch.zeros((N,), dtype=torch.float64, device=dev).index_add_(
+        0, seg, svalid.to(torch.float64))
+    base_run = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    base_run[seg] = base  # every member of a run writes the same corner
+    out_valid = torch.arange(N, device=dev) < n_out
+    cent = base_run + (sums / cnt.clamp_min(1.0)[:, None]).to(torch.float32)
+    out_xyz = torch.where(out_valid[:, None], cent, 0.0)
+    row_of = torch.zeros((N,), dtype=torch.int64, device=dev)
+    row_of[order] = torch.where(svalid, seg, 0)
+    return out_xyz, out_valid, row_of, n_out
+
+
+def voxel_centroids_map(xyz: torch.Tensor, valid: torch.Tensor, voxel: float):
+    """Voxel centroids with an input-row -> output-row map
+    (downsample.voxel_centroids_map and voxel_centroids_map_packed, which
+    give the same partition, order and map).  The grid anchors at the
+    cloud's own min - voxel / 2 in float32.  Returns (out_xyz f32[N, 3],
+    out_valid bool[N], row_of i64[N], n_out i64[] on the device); rows
+    past the n_out centroids hold 0.0."""
+    vox = torch.tensor(voxel, dtype=torch.float32, device=xyz.device)
+    return _centroids(xyz, valid, voxel, masked_min(xyz, valid) - 0.5 * vox)
+
+
+def voxel_centroids_packed(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
+                           origin: torch.Tensor):
+    """Voxel centroids on a grid anchored at the caller's `origin` f32[3]
+    (downsample.voxel_centroids_packed; the JAX function leaves its rows at
+    each run's first sorted slot for flagship._compact_xyz to compact, this
+    one returns them compacted already).  Returns (out_xyz, out_valid,
+    n_out) as voxel_centroids_map."""
+    out_xyz, out_valid, _row_of, n_out = _centroids(xyz, valid, voxel, origin)
+    return out_xyz, out_valid, n_out

@@ -135,3 +135,46 @@ def test_fpfh_matches_jax_fpfh_pass(rng):
     # TPU kernel's polynomial atan2 is ~1e-5 rad off)
     assert np.mean(diff > 0.5) < 1e-3
     assert np.median(diff) < 1e-3
+
+
+def test_masked_fpfh_matches_full_pass_and_jax(rng):
+    """The kp / kp_rows forms (K5 over the keypoints' stencil, K6 at
+    compacted rows that repeat and end in N sentinels) equal the full pass
+    at those rows exactly, and match JAX fpfh_pass(kp=, kp_rows=)."""
+    xyz, valid = _bump_cloud(1536, 64, rng)
+    N = xyz.shape[0]
+    radius = 0.9
+    nplan = cg.plan_grid(torch.from_numpy(xyz), torch.from_numpy(valid), 0.5)
+    normal = cg.surface_pass(nplan, 0.5, torch.from_numpy(VIEWPOINT))[0]
+    plan = cg.set_normals(cg.plan_grid(torch.from_numpy(xyz), torch.from_numpy(valid), radius),
+                          normal)
+    kp = (rng.random(N) < 0.03) & valid
+    rows = np.nonzero(kp)[0]
+    kp_rows = np.concatenate([rows, rows[:5], np.full(9, N)]).astype(np.int64)
+    full, full_v = (v.numpy() for v in cg.fpfh_pass(plan, radius))
+    feat, fv = (v.numpy() for v in cg.fpfh_pass(plan, radius, kp=torch.from_numpy(kp),
+                                                  kp_rows=torch.from_numpy(kp_rows)))
+    r = np.minimum(kp_rows, N - 1)
+    np.testing.assert_array_equal(fv, full_v[r] & (kp_rows < N))
+    np.testing.assert_array_equal(feat, np.where(fv[:, None], full[r], 0.0))
+    assert fv.sum() == len(rows) + 5
+    # the SPFH subset is the keypoints' 27-cell stencil, not every point
+    slots = cg.stencil_slots(plan, torch.nonzero(torch.from_numpy(kp)[plan.order[:plan.n_valid]])
+                             .squeeze(1))
+    assert 0 < slots.numel() < plan.n_valid
+    # kp alone: full-size output, exact at keypoint rows, 0 elsewhere
+    feat_k, fv_k = (v.numpy() for v in cg.fpfh_pass(plan, radius, kp=torch.from_numpy(kp)))
+    np.testing.assert_array_equal(fv_k, full_v & kp)
+    np.testing.assert_array_equal(feat_k[kp], full[kp])
+
+    jxyz = jnp.asarray(xyz)
+    jplan = jcg.set_normals(jcg.plan_grid(jxyz, jnp.zeros_like(jxyz), jnp.asarray(valid), radius,
+                                          exact=True), jnp.asarray(normal.numpy()))
+    jfeat, jfv = (np.asarray(v) for v in jcg.fpfh_pass(
+        jplan, radius, kp=jnp.asarray(kp), kp_rows=jnp.asarray(kp_rows.astype(np.int32)),
+        interpret=True))
+    np.testing.assert_array_equal(fv, jfv)
+    diff = np.abs(feat[fv] - jfeat[fv])
+    # as test_fpfh_matches_jax_fpfh_pass: only pairs on a bin edge may flip
+    assert np.mean(diff > 0.5) < 1e-3
+    assert np.median(diff) < 1e-3

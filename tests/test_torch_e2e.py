@@ -99,8 +99,8 @@ def test_rotations_agree(runs):
 def test_mutual_correspondences_agree(runs):
     rows, match, _thr, ok = (np.asarray(v) for v in runs["jout"]["correspondences"])
     jax_pairs = set(zip(rows[ok].tolist(), match[ok].tolist()))
-    trows, tmatch, _tthr = runs["tout"]["correspondences"]
-    port_pairs = set(zip(trows.tolist(), tmatch.tolist()))
+    trows, tmatch, _tthr, tok = runs["tout"]["correspondences"]
+    port_pairs = set(zip(trows[tok].tolist(), tmatch[tok].tolist()))
     share = len(jax_pairs & port_pairs) / len(jax_pairs)
     # measured: 0.9987 (1,495 of the JAX package's 1,497 mutual pairs; the
     # port has 1,496): descriptors that differ only in a bin-edge pair
@@ -112,6 +112,10 @@ def test_mutual_correspondences_agree(runs):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import lidar_global_registration_tpu_torch.models.flagship; "
+            "import lidar_global_registration_tpu_torch.models.pyramid; "
+            "import lidar_global_registration_tpu_torch.ops.density; "
+            "import lidar_global_registration_tpu_torch.ops.downsample; "
+            "import lidar_global_registration_tpu_torch.scene; "
             "import lidar_global_registration_tpu_torch.kernels; "
             "assert not any(m == 'lidar_global_registration_tpu' "
             "or m.startswith('lidar_global_registration_tpu.') for m in sys.modules)")

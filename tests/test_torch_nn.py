@@ -73,7 +73,11 @@ def test_match_bf_k1_shapes_and_refusals(rng):
     assert idx.shape == dist.shape == mask.shape == (50, 1)
     # self-matches; the expansion leaves float32 noise of |q|^2 ~ 33 in d2
     assert idx[:, 0].tolist() == list(range(50)) and float(dist.max()) < 0.1
+    # k > 1 is the exact top-k: the 40 nearest of a brute force, in order
+    i40, d40, m40 = match_bf(q, q, v, v, k=40)
+    assert i40.shape == d40.shape == m40.shape == (50, 40) and bool(m40.all())
+    qn = q.numpy().astype(np.float64)
+    want = np.argsort(((qn[:, None, :] - qn[None, :, :]) ** 2).sum(-1), axis=1)[:, :40]
+    np.testing.assert_array_equal(i40.numpy(), want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match_bf(q, q, v, v, k=40)
-    with pytest.raises(NotImplementedError):
         match_bf(q, q, v, v, k=1, bf16=True)
