@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the kernels of lidar_global_registration_tpu_torch/csrc from
-source and drives both ported routes of `models.flagship.register_pair_staged`:
+source and drives the ported routes of `models.flagship.register_pair_staged`:
 
   keypoint-any (bench.py:177-190): K1, K5, K6, K7 checked against their
       plain PyTorch versions at 65,536 points; the bench's 65,536-point
@@ -15,14 +15,22 @@ source and drives both ported routes of `models.flagship.register_pair_staged`:
       card; radii derived on the raw pair and again after the
       loader-equivalent pre-downsample, both outside the timed region;
       K2, K3, K4 and the K5 / K6 subset forms checked at the shapes of the
-      pre-downsampled working cloud; one warm-up and three timed repeats
-      of pre-downsample + register_pair_staged; a 65,536-point pair
-      through the kernels and the plain versions (CPU).
+      pre-downsampled working cloud, K1's slot-list form at the classic
+      masked route's need slots there, K7 at D = 352 on the pair's SHOT
+      keypoint descriptors.  Then on that pair, pre-downsample +
+      register_pair_staged:
+        FPFH feature-scale route (the flagship row): warm-up + 3 repeats;
+        the shipped SHOT regime (descriptor shot, lrf gravity; bench.py with
+          LGR_BENCH_DESC=shot): warm-up + 3 repeats;
+        the classic masked route (feature_scale=False), FPFH and SHOT: one
+          run each, a finite pose required.
+      A 65,536-point ISS pair through the kernels and the plain versions
+      (CPU), with FPFH and with SHOT.
 
-Every timed repeat is held to the bench's success rule (converged,
-rotation error < 0.05 rad, translation error < distance_thr, bench.py:327).
-Each route's launch counters are set to 0 before its main runs and must
-all have risen after them.
+Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
+bench's success rule (converged, rotation error < 0.05 rad, translation
+error < distance_thr, bench.py:327).  Each route's launch counters are set
+to 0 just before its runs and must all have risen after them.
 
 The next-to-last line of standard output is a JSON object with one entry
 per kernel; the last is {"ok": true, "device": {...}}.  Any failure exits
@@ -245,12 +253,16 @@ RADII_KEYS = ("normal_cell", "density_src", "density_tgt", "iss_src", "iss_tgt",
               "thr")
 
 
-def iss_cfg():
+def iss_cfg(**change):
     from lidar_global_registration_tpu_torch.models.flagship import FlagshipConfig
 
-    # bench.py:238-256 in ISS mode; the other fields are the JAX defaults
-    return FlagshipConfig(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
-                          metric="uniformity")
+    # bench.py:238-256 in ISS mode (LGR_BENCH_DESC=shot sets the shipped
+    # SHOT regime); the other fields are the JAX defaults
+    return FlagshipConfig(**{**dict(rounds=64, hypothesis_batch=1024, use_iss=True,
+                                    match_tile=4096, metric="uniformity"), **change})
+
+
+SHOT_CFG = dict(descriptor="shot", lrf="gravity")
 
 
 def iss_scene(n: int, dev):
@@ -379,8 +391,105 @@ def check_iss_kernels(sx, sv, radii):
     return records
 
 
-def register_iss(a, b, ones, vp_a, vp_b, radii, vox, aabb, seed, times=None):
-    """pre-downsample + register_pair_staged on the ISS route (bench.py:275-290)."""
+def check_shot_kernels(S):
+    """K1's slot-list form on the classic masked route's working cloud (its
+    need slots around the ISS keypoints) and K7 at D = 352 on the SHOT
+    descriptors of the 10M pair's keypoints, each against its plain
+    version."""
+    import math
+
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+    from lidar_global_registration_tpu_torch.ops.downsample import voxel_centroids_map
+    from lidar_global_registration_tpu_torch.ops.lrf import gravity_lrf
+    from lidar_global_registration_tpu_torch.ops.shot import shot
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, NORMAL_NR_POINTS
+
+    src = "lidar_global_registration_tpu_torch/csrc/"
+    radii = S["radii"]
+    rn, rf = radii["normal_cell"], radii["feature"]
+    records = []
+    # K1 slot form: the classic route's plans of the source working cloud
+    sx, sv = S["sx"], S["sv"]
+    r_iss = radii["iss_src"]
+    pn = cg.plan_grid(sx, sv, max(rn, r_iss))
+    pf = cg.plan_grid(sx, sv, rf)
+    kp, _sal = cg.iss_pass(pn, r_iss)
+    need = cg.point_need(pf, kp, 2)
+    slots = cg.stencil_slots(pn, torch.nonzero(need[pn.order[:pn.n_valid]]).squeeze(1))
+    r2n = cg._f32_square(rn)
+    out_k, d_k, id_k = cg.surface_at_cuda(pn, r2n, slots)
+    out_f, d_f, id_f = cg.surface_cuda(pn, r2n)
+    # the slot form is the same thread code at the listed slots: equal to
+    # the full kernel there, and untouched elsewhere
+    assert torch.equal(out_k[slots], out_f[slots]) and torch.equal(id_k[slots], id_f[slots])
+    rest = torch.ones(pn.n_valid, dtype=torch.bool, device=sx.device)
+    rest[slots] = False
+    assert not bool(out_k[rest].any()) and bool((id_k[rest] == -1).all())
+    out_p, d_p, id_p = cg.surface_plain(pn, r2n, slots)
+    assert torch.equal(out_k[:, 7], out_p[:, 7]), "K1 slot form: neighbour counts differ"
+    assert torch.equal(id_k, id_p), "K1 slot form: nearest-neighbour ids differ"
+    # tolerances of the K1 check above (normals up to sign where the eigen
+    # gap is clear, curvature and distances to float32 summation order)
+    o_k, o_p = out_k[slots], out_p[slots]
+    dots = (o_k[:, :3] * o_p[:, :3]).sum(1).abs()
+    ok = o_p[:, 7] >= 3
+    well = ok & (o_p[:, 5] - o_p[:, 4] >= 1e-2 * o_p[:, 6])
+    assert bool((dots[well] > 1 - 1e-5).all()), f"K1 slot normals: {float(dots[well].min())}"
+    torch.testing.assert_close(o_k[:, 3], o_p[:, 3], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=0.0)
+    sign = torch.where((o_k[:, :3] * o_p[:, :3]).sum(1, keepdim=True) < 0, -1.0, 1.0)
+    err = torch.cat([(o_k[:, :3] * sign - o_p[:, :3]).abs().flatten(),
+                     (o_k[:, 3:7] - o_p[:, 3:7]).abs().flatten(), (d_k - d_p).abs()])
+    records.append(dict(
+        name="surface_at", route="cuda", source=src + "surface.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1241",
+        max_abs_err=float(err.max()), queries=int(slots.numel()),
+        ms=cuda_ms(lambda: cg.surface_at_cuda(pn, r2n, slots), 10),
+        plain_ms=cuda_ms(lambda: cg.surface_plain(pn, r2n, slots), 1)))
+    log(f"# K1 slot form ok: {slots.numel()} of {pn.n_valid} working points "
+        f"({int(need.sum())} needed, {int(kp.sum())} keypoints), "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}")
+
+    # K7 at D = 352: SHOT of each side's ISS keypoints on its feature-scale
+    # surface, as the shipped regime computes them
+    voxel_f = math.sqrt(math.pi * rf**2 / FEATURE_NR_POINTS)
+    normal_f = math.sqrt(NORMAL_NR_POINTS / math.pi) * voxel_f
+    desc = []
+    for x, v, r_i, vp in ((sx, sv, radii["iss_src"], S["vp_a"]),
+                          (S["tx"], S["tv"], radii["iss_tgt"], S["vp_b"])):
+        kp_i, _ = cg.iss_pass(cg.plan_grid(x, v, r_i), r_i)
+        sm, smv, row_of, _n = voxel_centroids_map(x, v, voxel_f)
+        normal = cg.surface_pass(cg.plan_grid(sm, smv, normal_f), normal_f, vp)[0]
+        rows = torch.nonzero(kp_i).squeeze(1)
+        frames, fb = gravity_lrf(normal[row_of[rows]])
+        ones = torch.ones(rows.shape[0], dtype=torch.bool, device=x.device)
+        desc.append(shot(x[rows], ones, sm, normal, smv, rf, frames=frames, fallback_mask=fb))
+    (fq, _okq), (ft, okt) = desc
+    d2k, ik = nn_l2.nn_l2_cuda(fq, ft, okt)
+    d2p, ip = nn_l2.nn_l2_plain(fq, ft, okt)
+    # plain fp32 q @ t.T sums in another order: equal indices, or a d2
+    # within 1e-6 relatively where they differ (a near tie)
+    diff = ik != ip
+    near = (d2k - d2p).abs() <= 1e-6 * d2p.abs().clamp_min(1e-30)
+    assert bool(near[diff].all()), "K7 D=352: an index differs beyond a near tie"
+    torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-6)
+    records.append(dict(
+        name="nn_l2_d352", route="cuda", source=src + "nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((d2k - d2p).abs().max()), idx_mismatch=int(diff.sum()),
+        shape=[int(fq.shape[0]), int(ft.shape[0]), int(fq.shape[1])],
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fq, ft, okt), 5),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fq, ft, okt), 1)))
+    log(f"# K7 D=352 ok: {fq.shape[0]} x {ft.shape[0]} SHOT rows, {int(diff.sum())} index "
+        f"differences (near ties), max d2 err {records[-1]['max_abs_err']:.3g}")
+    return records
+
+
+def register_iss(S, cfg, seed, av=None, times=None):
+    """pre-downsample + register_pair_staged on an ISS route (bench.py:275-290)."""
     import torch
 
     from lidar_global_registration_tpu_torch.models.flagship import (
@@ -388,75 +497,109 @@ def register_iss(a, b, ones, vp_a, vp_b, radii, vox, aabb, seed, times=None):
         register_pair_staged,
     )
 
+    a = S["a"] if av is None else av
     t0 = time.perf_counter()
-    sx, sv, tx, tv = pre_downsample_pair(a, ones, b, ones, vox[0], vox[1], aabb=aabb)
+    sx, sv, tx, tv = pre_downsample_pair(a, S["ones"], S["b"], S["ones"], *S["vox"],
+                                         aabb=S["aabb"])
     if times is not None:
         torch.cuda.synchronize()
         times["pre_downsample"] = time.perf_counter() - t0
     gen = torch.Generator(device=a.device).manual_seed(seed)
-    return register_pair_staged(sx, sv, tx, tv, gen, *(radii[k] for k in RADII_KEYS),
-                                vp_src=vp_a, vp_tgt=vp_b, cfg=iss_cfg(),
+    return register_pair_staged(sx, sv, tx, tv, gen, *(S["radii"][k] for k in RADII_KEYS),
+                                vp_src=S["vp_a"], vp_tgt=S["vp_b"], cfg=cfg,
                                 return_correspondences=True, stage_times=times)
 
 
-def iss_phase(dev, counters):
-    """The 10,485,760-point ISS pair.  Returns the ISS kernel records and
-    the launch counts of its main runs."""
+def iss_setup(dev, n: int):
+    """An ISS pair sampled on `dev`: raw radii, the pre-downsample voxels
+    and bounds, the pre-downsampled working clouds and their radii."""
     import torch
 
     from lidar_global_registration_tpu_torch.models.flagship import (
         _aabb_pair,
         pre_downsample_pair,
     )
-    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
     from lidar_global_registration_tpu_torch.ops.density import derive_radii
-    from lidar_global_registration_tpu_torch.ops.downsample import voxel_centroids_map
-    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, SEED
 
-    t0 = time.perf_counter()
-    a, b, vp_a, vp_b, T_gt = iss_scene(N_ISS, dev)
-    torch.cuda.synchronize()
-    log(f"# ISS pair n={N_ISS}: sampled on the card in {time.perf_counter() - t0:.2f} s")
-    ones = torch.ones((N_ISS,), dtype=torch.bool, device=dev)
-    t0 = time.perf_counter()
+    a, b, vp_a, vp_b, T_gt = iss_scene(n, dev)
+    ones = torch.ones((n,), dtype=torch.bool, device=dev)
     raw = derive_radii(a, b)
-    log(f"# ISS raw radii ({time.perf_counter() - t0:.2f} s density set-up, 2 x {N_ISS} "
-        f"points): {raw}")
     vox = (2.0 * raw["density_src"], 2.0 * raw["density_tgt"])
     aabb = _aabb_pair(a, ones, b, ones).cpu().numpy()
     sx, sv, tx, tv = pre_downsample_pair(a, ones, b, ones, vox[0], vox[1], aabb=aabb)
-    t0 = time.perf_counter()
     radii = derive_radii(sx, tx, sv, tv)
-    log(f"# pre-downsample: {N_ISS} -> {sx.shape[0]} rows/side ({int(sv.sum())}/{int(tv.sum())} "
-        f"valid, voxel {vox[0]:.4f}/{vox[1]:.4f}); radii ({time.perf_counter() - t0:.2f} s): "
-        f"{radii}")
-    records = check_iss_kernels(sx, sv, radii)
+    return dict(a=a, b=b, ones=ones, vp_a=vp_a, vp_b=vp_b, T_gt=T_gt, raw=raw, vox=vox,
+                aabb=aabb, sx=sx, sv=sv, tx=tx, tv=tv, radii=radii)
 
+
+def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
+    """One warm-up (when repeats > 1) and `repeats` timed runs of
+    pre-downsample + register_pair_staged under `cfg`, with the launch
+    counters set to 0 just before and read just after; every counter must
+    have risen.  rule: hold each run to the bench's success rule, else to
+    a finite pose.  Returns the launch counts."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    dev = S["a"].device
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    register_iss(a, b, ones, vp_a, vp_b, radii, vox, aabb, SEED)  # warm-up
+    if repeats > 1:
+        register_iss(S, cfg, SEED)  # warm-up
     torch.cuda.synchronize()
-    for r in range(REPEATS):
-        av = a + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
+    for r in range(repeats):
+        av = S["a"] + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
         torch.cuda.synchronize()
         times = {}
         t0 = time.perf_counter()
-        out = register_iss(av, b, ones, vp_a, vp_b, radii, vox, aabb, SEED + r, times)
+        out = register_iss(S, cfg, SEED + r, av, times)
         out["transformation"].cpu()  # waits for the device
         dt = time.perf_counter() - t0
-        r_err, t_err, finite = pose_error(out, T_gt.cpu().numpy())
+        r_err, t_err, finite = pose_error(out, S["T_gt"].cpu().numpy())
         conv = bool(out["converged"])
-        ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
-        log(f"# ISS repeat {r} n={N_ISS}: {dt:.4f} s converged={conv} r_err={r_err:.5f} "
-            f"t_err={t_err:.4f} corr={float(out['n_correspondences']):.0f} "
+        ok = conv and r_err < R_ERR_MAX and t_err < S["radii"]["thr"] and finite
+        log(f"# {label} repeat {r} n={S['a'].shape[0]}: {dt:.4f} s converged={conv} "
+            f"r_err={r_err:.5f} t_err={t_err:.4f} corr={float(out['n_correspondences']):.0f} "
             f"inliers={int(out['inliers'])} metric={float(out['metric']):.4f} ok={ok}")
         log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
-        assert ok, f"ISS repeat {r} failed the bench's success rule"
+        assert finite, f"{label} repeat {r}: non-finite pose"
+        assert ok or not rule, f"{label} repeat {r} failed the bench's success rule"
     launches = {c.__name__: c.launches for c in counters}
-    log(f"# launches in the ISS runs: {launches}")
-    assert all(n > 0 for n in launches.values()), "a kernel of the ISS path was never launched"
+    log(f"# launches in the {label} runs: {launches}")
+    assert all(n > 0 for n in launches.values()), f"a kernel of the {label} path was never launched"
     log(f"#   peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return launches
+
+
+def iss_phase(dev):
+    """The 10,485,760-point ISS pair through three routes: the bench's
+    flagship row (FPFH), the shipped SHOT regime, and the classic masked
+    route (feature_scale=False) with each descriptor.  Returns the kernel
+    records of these routes and each route's launch counts."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+    from lidar_global_registration_tpu_torch.ops.downsample import voxel_centroids_map
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
+
+    t0 = time.perf_counter()
+    S = iss_setup(dev, N_ISS)
+    torch.cuda.synchronize()
+    sx, sv, tx, tv, radii = S["sx"], S["sv"], S["tx"], S["tv"], S["radii"]
+    log(f"# ISS pair n={N_ISS}: sampled on the card, raw radii, pre-downsample and radii in "
+        f"{time.perf_counter() - t0:.2f} s; raw {S['raw']}")
+    log(f"# pre-downsample: {N_ISS} -> {sx.shape[0]} rows/side ({int(sv.sum())}/{int(tv.sum())} "
+        f"valid, voxel {S['vox'][0]:.4f}/{S['vox'][1]:.4f}); radii {radii}")
+    records = check_iss_kernels(sx, sv, radii) + check_shot_kernels(S)
+
+    iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
+    launches = {}
+    launches["fpfh"] = iss_runs(S, iss_cfg(), (cg.surface_cuda, *iss_k, cg.spfh_at_cuda,
+                                               cg.combine_at_cuda, nn_l2.nn_l2_cuda),
+                                "ISS", REPEATS, rule=True)
     # sizes of one repeat's working set (outside the timed region)
     voxel_f = float(np.sqrt(np.pi * radii["feature"] ** 2 / FEATURE_NR_POINTS))
     for which, x, v, r_iss in (("src", sx, sv, radii["iss_src"]),
@@ -465,44 +608,46 @@ def iss_phase(dev, counters):
         n_sm = int(voxel_centroids_map(x, v, voxel_f)[3])
         log(f"#   {which}: {int(v.sum())} working points, {n_kp} keypoints, "
             f"voxel surface {n_sm} rows (voxel_f {voxel_f:.4f})")
+    launches["shot"] = iss_runs(S, iss_cfg(**SHOT_CFG), (cg.surface_cuda, *iss_k,
+                                                         nn_l2.nn_l2_cuda),
+                                "SHOT", REPEATS, rule=True)
+    launches["masked_fpfh"] = iss_runs(
+        S, iss_cfg(feature_scale=False), (cg.surface_at_cuda, *iss_k, cg.spfh_at_cuda,
+                                          cg.combine_at_cuda, nn_l2.nn_l2_cuda),
+        "classic masked FPFH", 1, rule=False)
+    launches["masked_shot"] = iss_runs(
+        S, iss_cfg(feature_scale=False, **SHOT_CFG), (cg.surface_at_cuda, *iss_k,
+                                                      nn_l2.nn_l2_cuda),
+        "classic masked SHOT", 1, rule=False)
     return records, launches
 
 
-def iss_small_pair(dev):
+def iss_small_pair(dev, label: str, **change):
     """A 65,536-point ISS pair through the kernels and through the plain
     versions (CPU), from one sample."""
     import torch
 
-    from lidar_global_registration_tpu_torch.models.flagship import (
-        _aabb_pair,
-        pre_downsample_pair,
-    )
-    from lidar_global_registration_tpu_torch.ops.density import derive_radii
     from lidar_global_registration_tpu_torch.types import SEED
 
     cpu = torch.device("cpu")
-    a, b, vp_a, vp_b, T_gt = iss_scene(N_ISS_SMALL, cpu)
-    raw = derive_radii(a, b)
-    vox = (2.0 * raw["density_src"], 2.0 * raw["density_tgt"])
+    S0 = iss_setup(cpu, N_ISS_SMALL)  # one sample, one set of radii for both paths
     outs = []
     for d in (dev, cpu):
-        ones = torch.ones((N_ISS_SMALL,), dtype=torch.bool, device=d)
-        ad, bd = a.to(d), b.to(d)
-        aabb = _aabb_pair(ad, ones, bd, ones).cpu().numpy()
-        sx, sv, tx, tv = pre_downsample_pair(ad, ones, bd, ones, vox[0], vox[1], aabb=aabb)
-        radii = derive_radii(sx, tx, sv, tv)
-        outs.append(register_iss(ad, bd, ones, vp_a.to(d), vp_b.to(d), radii, vox, aabb, SEED))
-    (rg, tg, _), (rc, tc, _) = (pose_error(o, T_gt.numpy()) for o in outs)
+        S = {k: v.to(d) if torch.is_tensor(v) else v for k, v in S0.items()}
+        outs.append(register_iss(S, iss_cfg(**change), SEED))
+    T_gt = S0["T_gt"].numpy()
+    (rg, tg, _), (rc, tc, _) = (pose_error(o, T_gt) for o in outs)
     share = shared_share(*outs)
-    log(f"# small ISS pair n={N_ISS_SMALL}: kernels r_err={rg:.5f} t_err={tg:.4f} "
+    log(f"# small {label} pair n={N_ISS_SMALL}: kernels r_err={rg:.5f} t_err={tg:.4f} "
         f"corr={float(outs[0]['n_correspondences']):.0f}, plain r_err={rc:.5f} t_err={tc:.4f} "
         f"corr={float(outs[1]['n_correspondences']):.0f}, shared cluster correspondences "
         f"{share:.4f}")
     assert bool(outs[0]["converged"]) and bool(outs[1]["converged"])
     assert rg < R_ERR_MAX and rc < R_ERR_MAX
     # the two paths differ by float32 summation order (K3's saliency near the
-    # gamma gates) and atan2f (K5's bin edges); the consensus gate and the
-    # max_correspondences cap pass such differences on
+    # gamma gates, the SHOT frames' covariances) and atan2f (K5's bin
+    # edges); the consensus gate and the max_correspondences cap pass such
+    # differences on
     assert share >= 0.8, share
 
 
@@ -604,19 +749,21 @@ def main() -> int:
     log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
     assert finite, "large run: non-finite pose"
 
-    # the ISS route: the 10M flagship pair, then a small pair via both paths
-    iss_counters = (cellgrid.surface_cuda, cellgrid.iss_count_cuda, cellgrid.iss_saliency_cuda,
-                    cellgrid.iss_nms_cuda, cellgrid.spfh_at_cuda, cellgrid.combine_at_cuda,
-                    nn_l2.nn_l2_cuda)
-    iss_records, iss_launches = iss_phase(dev, iss_counters)
-    for rec in records:  # K1 and K7 run on both routes
-        key = {"surface": "surface_cuda", "nn_l2": "nn_l2_cuda"}.get(rec["name"])
-        if key:
-            rec["launches_iss"] = iss_launches[key]
+    # the ISS routes on the 10M pair, then small pairs via both paths
+    iss_records, iss_launches = iss_phase(dev)
+    counts = {"surface": "surface_cuda", "nn_l2": "nn_l2_cuda"}
+    for rec in records:  # K1 and K7 run on the ISS routes too
+        if rec["name"] in counts:
+            for route, got in iss_launches.items():
+                rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
+    own = {"surface_at": ("masked_fpfh", "surface_at_cuda"),
+           "nn_l2_d352": ("shot", "nn_l2_cuda")}
     for rec in iss_records:
-        rec["launches"] = iss_launches[rec["name"] + "_cuda"]
+        route, key = own.get(rec["name"], ("fpfh", rec["name"] + "_cuda"))
+        rec["launches"] = iss_launches[route][key]
     records += iss_records
-    iss_small_pair(dev)
+    iss_small_pair(dev, "ISS")
+    iss_small_pair(dev, "SHOT", **SHOT_CFG)
 
     log(f"{gpu}")
     log(json.dumps({"kernels": records}))

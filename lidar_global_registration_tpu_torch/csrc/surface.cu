@@ -15,6 +15,13 @@
 // walk, not arithmetic.  Points are sorted by cell, so the 32 threads of a
 // warp mostly scan the same columns in step and their loads of one
 // candidate coalesce into one L1 transaction.
+//
+// An optional list of sorted query slots gives the need-masked form
+// (`surface_pass(need=)`, cellgrid.py:1734-1747, where the TPU retabs its
+// blocks with a 1-cell flag stencil): thread s then computes query slots[s]
+// and writes its row at that slot, so a masked pass computes only the
+// cells around needed points.  The slots come in ascending order, so the
+// threads of a warp still mostly share cells.
 #include <climits>
 
 #include "cellgrid.cuh"
@@ -25,11 +32,12 @@ constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
     surface_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                   const int2* __restrict__ cols, const int* __restrict__ oid, int n, float r2,
-                   float* __restrict__ out, float* __restrict__ nn_d,
-                   int* __restrict__ nn_id) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                   const int2* __restrict__ cols, const int* __restrict__ oid,
+                   const int* __restrict__ slots, int m, float r2, float* __restrict__ out,
+                   float* __restrict__ nn_d, int* __restrict__ nn_id) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= m) return;
+  const int i = slots ? slots[s] : s;
   const float4 q = pts[i];
   float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
   float sxx = 0.f, sxy = 0.f, sxz = 0.f, syy = 0.f, syz = 0.f, szz = 0.f;
@@ -82,15 +90,18 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // pts f32[N,4] sorted xyz; cell_of i32[n]; cols i32[n_cells,9,2]; oid i32[n]
-// input id per sorted point; out f32[n,8] (normal xyz, curvature, l0, l1,
-// l2, count); nn_d f32[n]; nn_id i32[n] (-1: no neighbour at d2 > 0).
+// input id per sorted point; slots i32[m] sorted query slots, or null for
+// the m = n queries 0..n-1; out f32[n,8] (normal xyz, curvature, l0, l1,
+// l2, count), nn_d f32[n] and nn_id i32[n] (-1: no neighbour at d2 > 0) are
+// written at the queries' slots only.
 extern "C" int lgr_surface(const void* pts, const void* cell_of, const void* cols,
-                           const void* oid, int n, float r2, void* out, void* nn_d, void* nn_id,
-                           void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+                           const void* oid, const void* slots, int m, float r2, void* out,
+                           void* nn_d, void* nn_id, void* stream) {
+  const int blocks = (m + kThreads - 1) / kThreads;
   surface_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const int*>(oid), n, r2,
-      static_cast<float*>(out), static_cast<float*>(nn_d), static_cast<int*>(nn_id));
+      static_cast<const int2*>(cols), static_cast<const int*>(oid),
+      static_cast<const int*>(slots), m, r2, static_cast<float*>(out),
+      static_cast<float*>(nn_d), static_cast<int*>(nn_id));
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,8 +38,8 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (all return int = cudaError_t)
 SIGNATURES = {
-    # pts, cell_of, cols, oid, n, r2, out8, nn_d, nn_id, stream
-    "lgr_surface": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
+    # pts, cell_of, cols, oid, slots (or 0), m, r2, out8, nn_d, nn_id, stream
+    "lgr_surface": (_P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
     # pts, cell_of, cols, n, r2, count, stream
     "lgr_iss_count": (_P, _P, _P, _I, _F, _P, _P),
     # pts, cell_of, cols, count, n, r2, gamma21, gamma32, sal, ok, nnb, stream

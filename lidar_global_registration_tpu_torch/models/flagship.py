@@ -1,31 +1,41 @@
 """Staged registration (lidar_global_registration_tpu/models/flagship.py
-`register_pair_staged`): two of the JAX function's routes.
+`register_pair_staged`): its routes for ISS and keypoint-any keypoints,
+with FPFH-33 or SHOT-352 descriptors.
 
-The ISS route, the JAX defaults (`use_iss=True`, masked features, feature
-scale, cluster matching; flagship.py:1192-1206, 1504-1667, 1857-1916):
+The feature-scale ISS route, the JAX defaults (`use_iss=True`, masked
+features, feature scale, cluster matching; flagship.py:1192-1206,
+1504-1667, 1857-1916):
 
   fs_maps    per side a voxel surface at voxel_f = sqrt(pi r_f^2 / 352)
              with its input-row -> surface-row map (ops/downsample.py)
-  plan       six cell grids: the working clouds at the ISS radius, the
-             surfaces at normal_f and at the feature radius
+  plan       cell grids: the working clouds at the ISS radius, the
+             surfaces at normal_f (and for FPFH at the feature radius)
   side       K2-K4 ISS keypoints on the working cloud, then ONE host read
              of the keypoint counts and surface sizes, and the gates
-  fpfh       per side: K1 normals on the surface, then K5 SPFH over the
-             keypoints' stencil and K6 combine at each keypoint's surface
-             row (the `kp` / `kp_rows` forms), compacted
+  fpfh/shot  per side: K1 normals on the surface, then FPFH (K5 SPFH over
+             the keypoints' stencil, K6 combine at each keypoint's surface
+             row) or SHOT (gravity frames, exact radius query on the
+             surface, ops/shot.py) at the keypoints, compacted
   match_corr K7 1-NN both ways, exact top-k keypoint kNN per side, the
              cluster-consensus gate with its max_correspondences cap, the
              keypoint-cloud density as the per-pair threshold, one-sided
   ransac     batched prerejective RANSAC (correspondences or uniformity
              score), Kabsch refit
 
+The classic masked ISS route (flagship.py:1671-1791), where the JAX
+package goes with `feature_scale=False`, `cluster_matching=False`, or when
+a data gate of the feature-scale route fails: per side ISS + the
+need-masked K1 surface on the working cloud (point_need), then FPFH at
+the keypoints; SHOT runs at the compacted keypoints over the whole
+working cloud.  Matching is compacted (cluster gate or mutual), or, when
+the keypoints are no minority of the rows, mutual 1-NN over full rows.
+
 The keypoint-any route (`use_iss=False`; flagship.py:1795-1836, 1857-1872,
 1940-1957): K1 normals + density, K5 + K6 over every point, mutual K7 1-NN.
 
-Settings and data that would send the JAX function down another route (or
-into one of its fallbacks) raise NotImplementedError naming the ROADMAP.md
-item that ports it.  There are no learned weights: what carries over from
-the JAX package is its config (`config_from_jax`) and the radii
+Other settings raise NotImplementedError naming the ROADMAP.md item that
+ports them.  There are no learned weights: what carries over from the JAX
+package is its config (`config_from_jax`) and the radii
 (ops/density.derive_radii).
 """
 from __future__ import annotations
@@ -45,12 +55,14 @@ from lidar_global_registration_tpu_torch.ops.downsample import (
     voxel_centroids_map,
     voxel_centroids_packed,
 )
+from lidar_global_registration_tpu_torch.ops.lrf import gravity_lrf
 from lidar_global_registration_tpu_torch.ops.metrics import (
     estimate_max_iterations,
     transform_points_soa,
     uniformity_bins,
     uniformity_entropy,
 )
+from lidar_global_registration_tpu_torch.ops.shot import shot
 from lidar_global_registration_tpu_torch.ops.transform import kabsch, to_matrix4
 from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, NORMAL_NR_POINTS
 
@@ -58,10 +70,8 @@ MIN_NR_INLIERS = 10
 MIN_NR_FINAL_INLIERS = 20
 MIN_INLIER_RATE = 0.15
 
-_MASKED = "'masked features' (the classic masked route, point_need)"
 # (field, value the port supports, ROADMAP.md item that ports the others)
 _SLICE_ONLY = (
-    ("descriptor", "fpfh", "'SHOT'"),
     ("alignment", "ransac", "'GROR'"),
     ("pyramid", False, "'staged pyramid'"),
     ("bf16_matching", False, "'host-path ops' (matcher variants)"),
@@ -70,8 +80,10 @@ _SLICE_ONLY = (
 # the same, for the fields that only the ISS route reads
 _ISS_ONLY = (
     ("masked_features", True, "'masked features' (the unmasked ISS route)"),
-    ("feature_scale", True, _MASKED),
-    ("cluster_matching", True, _MASKED),
+)
+# and for the keypoint-any route
+_ANY_ONLY = (
+    ("descriptor", "fpfh", "'SHOT' (keypoint-any SHOT)"),
 )
 
 
@@ -100,7 +112,12 @@ class FlagshipConfig:
     cluster_knn_tile: int = 32768
     max_correspondences: int = 1024
     metric: str = "correspondences"
-    descriptor: str = "fpfh"
+    descriptor: str = "fpfh"  # fpfh | shot
+    lrf: str = "gravity"  # SHOT frames: gravity (+ SHOT-LRF fallback) | default
+    shot_k: int = 512  # SHOT neighbours per keypoint (the k nearest within r)
+    # the JAX package's per-cell candidate cap of its SHOT query; the port's
+    # query is exact and uncapped, so it does not read it
+    shot_cap: int = 128
     uniformity_top: int = 64
     degree_top: int = 800
     ransac_compact: int = 4096
@@ -108,13 +125,18 @@ class FlagshipConfig:
     pyramid: bool = False
 
     def __post_init__(self):
-        checks = _SLICE_ONLY + (_ISS_ONLY if self.use_iss else ())
+        checks = _SLICE_ONLY + (_ISS_ONLY if self.use_iss else _ANY_ONLY)
         for field, value, item in checks:
             if getattr(self, field) != value:
                 raise NotImplementedError(
                     f"{field}={getattr(self, field)!r} takes a route that is not "
                     f"ported yet: see ROADMAP.md, {item}"
                 )
+        if self.descriptor == "shot" and self.lrf == "gt":
+            raise NotImplementedError(
+                "lrf='gt' (ground-truth frames) is not ported: see ROADMAP.md, 'SHOT' "
+                "(the staged envelope never sends it here, pipeline.py:164-166)"
+            )
 
 
 def config_from_jax(cfg: dict) -> FlagshipConfig:
@@ -440,9 +462,108 @@ def ransac_solve(p, q, thr, cvalid, generator: torch.Generator, cfg: FlagshipCon
 # ---------------------------------------------------------------------------
 # register_pair_staged
 # ---------------------------------------------------------------------------
-def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, normal_cell, feature_radius,
-               distance_thr, vp_src, vp_tgt, cfg, _t):
-    """Keypoint-any: surface + FPFH over every point, mutual 1-NN."""
+class _GateFailed(Exception):
+    """A data gate of the feature-scale route failed: the JAX package
+    prints its notice and takes the classic masked route
+    (flagship.py:1594-1607, 1668-1670)."""
+
+
+def _shot_stage(kp_xyz, kp_normal, kpv, surf_xyz, surf_normal, surf_valid, radius: float,
+                cfg: FlagshipConfig, plan=None):
+    """SHOT-352 at the (compacted) keypoints over the support surface
+    (flagship._shot_stage + _shot_side_fused, shot_debug.cpp:24-219): with
+    lrf='gravity' the frames are z = keypoint normal, y = gravity x z
+    (common.cpp:712-734), and the SHOT LRF over the same neighbours where
+    the normal lies within 0.04 rad of gravity.  The JAX package sizes its
+    per-cell candidate cap from the support's spacing; the port's query is
+    exact, so it needs none.  `plan`: a plan of the support at `radius`."""
+    frames = needs_fb = None
+    if cfg.lrf == "gravity":
+        frames, needs_fb = gravity_lrf(kp_normal)
+    return shot(kp_xyz, kpv, surf_xyz, surf_normal, surf_valid, radius, frames=frames,
+                k_neighbors=cfg.shot_k, fallback_mask=needs_fb, plan=plan)
+
+
+def _restore_rows(ec, n_rows: int):
+    """Full-row (feat, valid) from a side's compacted tuple (n, sj, g, v,
+    feat) (flagship.py:1773-1779)."""
+    _n, sj, _g, v, featc = ec
+    keep = sj < n_rows
+    f = torch.zeros((n_rows, featc.shape[1]), dtype=featc.dtype, device=featc.device)
+    f[sj[keep]] = featc[keep]
+    fv = torch.zeros((n_rows,), dtype=torch.bool, device=featc.device)
+    fv[sj[keep]] = v[keep]
+    return f, fv
+
+
+def _match_region(src, tgt, fq, fq_valid, ft, ft_valid, ec_q, ec_t, dens_s, dens_t,
+                  radii, cfg, _t):
+    """Keypoint compaction and matching (flagship.py:1857-1950).  src / tgt
+    = (xyz, valid, normal, support plan at the feature radius).  Per side
+    either full rows (fq [N, D] or None for SHOT, fq_valid) or a compacted
+    tuple ec = (n, sj, g, v, feat).  When both sides hold between 1 and
+    N/2 descriptor rows they are matched compacted (SHOT computed there,
+    at the compacted keypoints over the whole cloud), with the cluster
+    gate under cluster matching; otherwise SHOT (if any) runs over every
+    masked row and the full rows are matched by mutual 1-NN."""
+    feature_radius, distance_thr = radii[5], radii[6]
+    src_xyz, src_valid, src_normal, pf_s = src
+    tgt_xyz, tgt_valid, tgt_normal, pf_t = tgt
+    shot_mode = cfg.descriptor == "shot"
+    N_all = src_valid.shape[0]
+    if ec_q is not None and ec_t is not None:
+        n_q, n_t = ec_q[0], ec_t[0]
+    else:
+        n_q, n_t = (int(v) for v in torch.stack([fq_valid.sum(), ft_valid.sum()]).tolist())
+    if min(n_q, n_t) > 0 and max(n_q, n_t) <= N_all // 2:
+        if ec_q is not None and ec_t is not None:
+            (_, sqj, sq_g, qv, fqc), (_, stj, st_g, tv, ftc) = ec_q, ec_t
+        else:
+            mq, mt = _pad_quantum(n_q), _pad_quantum(n_t)
+            # padding rows point at N_all: gathers clamp, scatters drop them
+            sqj = _compact_rows(fq_valid, n_q, mq)
+            stj = _compact_rows(ft_valid, n_t, mt)
+            sq_g, st_g = sqj.clamp_max(N_all - 1), stj.clamp_max(N_all - 1)
+            qv = torch.arange(mq, device=sqj.device) < n_q
+            tv = torch.arange(mt, device=stj.device) < n_t
+            if shot_mode:
+                fqc, ok_q = _shot_stage(src_xyz[sq_g], src_normal[sq_g], qv, src_xyz, src_normal,
+                                        src_valid, feature_radius, cfg, plan=pf_s)
+                _t("shot_src")
+                ftc, ok_t = _shot_stage(tgt_xyz[st_g], tgt_normal[st_g], tv, tgt_xyz, tgt_normal,
+                                        tgt_valid, feature_radius, cfg, plan=pf_t)
+                _t("shot_tgt")
+                qv, tv = qv & ok_q, tv & ok_t
+            else:
+                fqc, ftc = fq[sq_g], ft[st_g]
+        kc = max(2, min(cfg.cluster_k, n_q - 1, n_t - 1))
+        out = _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, tgt_xyz,
+                                        dens_s, dens_t, distance_thr, cfg, kc)
+        _t("match_corr")
+        return out
+    if cfg.use_iss and cfg.cluster_matching:
+        print(f"# cluster matching -> mutual 1-NN fallback: {n_q}/{n_t} keypoints of {N_all} "
+              "rows exceed the compaction precondition", flush=True)
+    if shot_mode:
+        fq, fq_valid = _shot_stage(src_xyz, src_normal, fq_valid, src_xyz, src_normal, src_valid,
+                                   feature_radius, cfg, plan=pf_s)
+        _t("shot_src")
+        ft, ft_valid = _shot_stage(tgt_xyz, tgt_normal, ft_valid, tgt_xyz, tgt_normal, tgt_valid,
+                                   feature_radius, cfg, plan=pf_t)
+        _t("shot_tgt")
+    idx_st, _d1, mask_st = matchers.match_bf(fq, ft, fq_valid, ft_valid, k=1, tile=cfg.match_tile)
+    _t("match_st")
+    idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, ft_valid, fq_valid, k=1, tile=cfg.match_tile)
+    _t("match_ts")
+    out = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t, distance_thr)
+    _t("corr")
+    return out
+
+
+def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
+    """Keypoint-any: surface + FPFH over every point, mutual 1-NN
+    (flagship.py:1795-1836)."""
+    normal_cell, feature_radius = radii[0], radii[5]
     plans = [cellgrid.plan_grid(x, v, c)
              for x, v in ((src_xyz, src_valid), (tgt_xyz, tgt_valid))
              for c in (normal_cell, feature_radius)]
@@ -457,42 +578,21 @@ def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, normal_cell, feature_radi
 
     dens_s, fq, fq_valid = side(plans[0], plans[1], src_valid, vp_src, "src")
     dens_t, ft, ft_valid = side(plans[2], plans[3], tgt_valid, vp_tgt, "tgt")
-
-    N_all = src_valid.shape[0]
-    n_q, n_t = (int(v) for v in torch.stack([fq_valid.sum(), ft_valid.sum()]).tolist())
-    if min(n_q, n_t) > 0 and max(n_q, n_t) <= N_all // 2:
-        mq, mt = _pad_quantum(n_q), _pad_quantum(n_t)
-        sqj = _compact_rows(fq_valid, n_q, mq)
-        stj = _compact_rows(ft_valid, n_t, mt)
-        sq_g, st_g = sqj.clamp_max(N_all - 1), stj.clamp_max(N_all - 1)
-        qv = torch.arange(mq, device=sqj.device) < n_q
-        tv = torch.arange(mt, device=stj.device) < n_t
-        out = _compact_match_corr_stage(fq[sq_g], ft[st_g], qv, tv, sqj, stj, sq_g, st_g,
-                                        src_xyz, tgt_xyz, dens_s, dens_t, distance_thr,
-                                        cfg, kc=2)
-        _t("match_corr")
-        return out
-    idx_st, _d1, mask_st = matchers.match_bf(fq, ft, fq_valid, ft_valid, k=1, tile=cfg.match_tile)
-    _t("match_st")
-    idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, ft_valid, fq_valid, k=1, tile=cfg.match_tile)
-    _t("match_ts")
-    out = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t, distance_thr)
-    _t("corr")
-    return out
+    return _match_region((src_xyz, src_valid, None, None), (tgt_xyz, tgt_valid, None, None),
+                         fq, fq_valid, ft, ft_valid, None, None, dens_s, dens_t, radii, cfg, _t)
 
 
-def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
-    """ISS keypoints + feature-scale masked FPFH + cluster matching
-    (flagship.py:1504-1667, then the compacted region :1857-1916)."""
-    (normal_cell, density_cell_src, density_cell_tgt, iss_radius_src, iss_radius_tgt,
-     feature_radius, distance_thr) = radii
+def _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg,
+                         _t):
+    """ISS keypoints + descriptors on the feature-scale voxel surface +
+    cluster matching (flagship.py:1504-1667, then :1857-1916).  Raises
+    _GateFailed where the JAX package leaves for the classic masked route:
+    keypoint counts outside (0, N/2], or a surface that keeps more than
+    0.8 of its cloud's rows."""
+    (_normal_cell, _dens_s, _dens_t, iss_radius_src, iss_radius_tgt, feature_radius,
+     distance_thr) = radii
+    shot_mode = cfg.descriptor == "shot"
     voxel_f = float(math.sqrt(math.pi * feature_radius**2 / FEATURE_NR_POINTS))
-    if voxel_f < 0.9 * max(density_cell_src, density_cell_tgt):
-        raise NotImplementedError(
-            f"the feature-scale voxel {voxel_f:.4g} is below 0.9 x the density "
-            f"{max(density_cell_src, density_cell_tgt):.4g}: the JAX package takes "
-            f"the classic masked route; see ROADMAP.md, {_MASKED}"
-        )
     # NORMAL_NR-point disks on a grid of spacing voxel_f
     normal_f = float(math.sqrt(NORMAL_NR_POINTS / math.pi)) * voxel_f
     N_all = src_valid.shape[0]
@@ -502,9 +602,12 @@ def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
     pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
     pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
     pns_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, normal_f)
-    pfs_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, feature_radius)
     pns_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, normal_f)
-    pfs_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, feature_radius)
+    # SHOT plans its own query grid on the sliced surface (in shot_*)
+    pfs_s = pfs_t = None
+    if not shot_mode:
+        pfs_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, feature_radius)
+        pfs_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, feature_radius)
     _t("plan")
     src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
     _t("side_src")
@@ -515,33 +618,40 @@ def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
         src_kp.sum(), tgt_kp.sum(), torch.as_tensor(n_sm_s, device=src_kp.device),
         torch.as_tensor(n_sm_t, device=src_kp.device)]).tolist())
     if not (0 < n_kp_s <= N_all // 2 and 0 < n_kp_t <= N_all // 2):
-        raise NotImplementedError(
-            f"kp counts {n_kp_s}/{n_kp_t} of {N_all} rows are outside the compaction "
-            f"precondition: the JAX package takes the classic masked route and the "
-            f"mutual 1-NN fallback; see ROADMAP.md, {_MASKED}"
-        )
+        raise _GateFailed(f"kp counts {n_kp_s}/{n_kp_t} of {N_all} rows outside the "
+                          "compaction precondition")
     if n_sm_s > 0.8 * pi_s.n_valid or n_sm_t > 0.8 * pi_t.n_valid:
-        raise NotImplementedError(
-            f"voxel surfaces {n_sm_s}/{n_sm_t} rows would not shrink the "
-            f"{pi_s.n_valid}/{pi_t.n_valid}-row clouds: the JAX package takes the "
-            f"classic masked route; see ROADMAP.md, {_MASKED}"
-        )
+        raise _GateFailed(f"voxel surfaces {n_sm_s}/{n_sm_t} rows would not shrink the "
+                          f"{pi_s.n_valid}/{pi_t.n_valid}-row clouds")
 
-    def fs_side(kp, n_kp, row_of, pns, pfs, vp, which):
+    def fs_side(kp, n_kp, row_of, n_sm, pns, pfs, xyz, sm_xyz, sm_v, vp, which):
         m = _pad_quantum(n_kp)
         sj = _compact_rows(kp, n_kp, m)
-        rows_small = torch.where(sj < N_all, row_of[sj.clamp_max(N_all - 1)], N_all)
+        g = sj.clamp_max(N_all - 1)
+        kpv = torch.arange(m, device=kp.device) < n_kp
+        rows_small = torch.where(sj < N_all, row_of[g], N_all)
         normal_sm = cellgrid.surface_pass(pns, normal_f, vp)[0]
+        if shot_mode:
+            # SHOT at the exact keypoint positions over the surface, whose
+            # rows are front-compacted: slicing to the padded surface size
+            # shrinks the query's grid
+            ms = min(_pad_quantum(n_sm), N_all)
+            normal_c = normal_sm[:ms]
+            featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)], kpv,
+                                     sm_xyz[:ms], normal_c, sm_v[:ms], feature_radius, cfg)
+            _t(f"shot_{which}")
+            return sj, g, kpv & fvc, featc
         kp_small = torch.zeros((N_all,), dtype=torch.bool, device=kp.device)
         kp_small[rows_small[rows_small < N_all]] = True
         featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), feature_radius,
                                         kp=kp_small, kp_rows=rows_small)
         _t(f"fpfh_{which}")
-        v = (torch.arange(m, device=kp.device) < n_kp) & fvc
-        return sj, sj.clamp_max(N_all - 1), v, featc
+        return sj, g, kpv & fvc, featc
 
-    sqj, sq_g, qv, fqc = fs_side(src_kp, n_kp_s, row_of_s, pns_s, pfs_s, vp_src, "src")
-    stj, st_g, tv, ftc = fs_side(tgt_kp, n_kp_t, row_of_t, pns_t, pfs_t, vp_tgt, "tgt")
+    sqj, sq_g, qv, fqc = fs_side(src_kp, n_kp_s, row_of_s, n_sm_s, pns_s, pfs_s, src_xyz,
+                                 sm_xyz_s, sm_v_s, vp_src, "src")
+    stj, st_g, tv, ftc = fs_side(tgt_kp, n_kp_t, row_of_t, n_sm_t, pns_t, pfs_t, tgt_xyz,
+                                 sm_xyz_t, sm_v_t, vp_tgt, "tgt")
     # cluster matching overwrites the density at every keypoint row with the
     # keypoint-cloud density; other rows are never read, and a zero density
     # falls back to distance_thr in the correspondence stage
@@ -551,6 +661,72 @@ def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
                                     dens, dens, distance_thr, cfg, kc)
     _t("match_corr")
     return out
+
+
+def _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
+    """The classic masked route (flagship.py:1671-1791, then the matching
+    region :1857-1950): per side, ISS + the need-masked surface on the
+    working cloud at max(normal cell, ISS radius), then FPFH at the
+    keypoints, compacted in the pass when the keypoint count allows it
+    (the JAX package's big-N layout; its smaller-N layouts give the same
+    values), or nothing yet for SHOT."""
+    (normal_cell, _dens_s, _dens_t, iss_radius_src, iss_radius_tgt, feature_radius,
+     _thr) = radii
+    shot_mode = cfg.descriptor == "shot"
+    N_all = src_valid.shape[0]
+    pn_s = cellgrid.plan_grid(src_xyz, src_valid, max(normal_cell, iss_radius_src))
+    pf_s = cellgrid.plan_grid(src_xyz, src_valid, feature_radius)
+    pn_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, max(normal_cell, iss_radius_tgt))
+    pf_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, feature_radius)
+
+    def side(pn, pf, iss_radius, vp, which):
+        normal, kp, dens, _sal = cellgrid.surface_iss_masked(pn, pf, normal_cell, iss_radius, vp,
+                                                             shot=shot_mode)
+        _t(f"side_{which}")
+        if shot_mode:
+            return normal, kp, dens, None, kp, None
+        n = int(kp.sum())
+        pf_n = cellgrid.set_normals(pf, normal)
+        if 0 < n <= N_all // 2:
+            m = _pad_quantum(n)
+            sj = _compact_rows(kp, n, m)
+            featc, fvc = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp, kp_rows=sj)
+            _t(f"fpfh_{which}")
+            v = (torch.arange(m, device=kp.device) < n) & fvc
+            return normal, kp, dens, None, None, (n, sj, sj.clamp_max(N_all - 1), v, featc)
+        feat, fv = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp)
+        _t(f"fpfh_{which}")
+        return normal, kp, dens, feat, fv & kp, None
+
+    src_normal, _src_kp, dens_s, fq, fq_valid, ec_q = side(pn_s, pf_s, iss_radius_src, vp_src,
+                                                           "src")
+    tgt_normal, _tgt_kp, dens_t, ft, ft_valid, ec_t = side(pn_t, pf_t, iss_radius_tgt, vp_tgt,
+                                                           "tgt")
+    # one side compacted, the other not: back to full rows for both
+    if ec_q is not None and ec_t is None:
+        (fq, fq_valid), ec_q = _restore_rows(ec_q, N_all), None
+    elif ec_t is not None and ec_q is None:
+        (ft, ft_valid), ec_t = _restore_rows(ec_t, N_all), None
+    return _match_region((src_xyz, src_valid, src_normal, pf_s),
+                         (tgt_xyz, tgt_valid, tgt_normal, pf_t), fq, fq_valid, ft, ft_valid,
+                         ec_q, ec_t, dens_s, dens_t, radii, cfg, _t)
+
+
+def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
+    """The ISS routes (flagship.py:1191-1206): the feature-scale route when
+    cluster matching and feature_scale are on and the feature-scale voxel
+    is at least 0.9 x the larger density (a silent pre-gate in the JAX
+    package too), else, or when one of its data gates fails (with the JAX
+    package's notice), the classic masked route."""
+    density = max(radii[1], radii[2])
+    voxel_f = float(math.sqrt(math.pi * radii[5]**2 / FEATURE_NR_POINTS))
+    if cfg.cluster_matching and cfg.feature_scale and voxel_f >= 0.9 * density:
+        try:
+            return _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src,
+                                        vp_tgt, cfg, _t)
+        except _GateFailed as e:
+            print(f"# feature-scale surface -> classic masked path: {e}", flush=True)
+    return _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
 
 
 def register_pair_staged(
@@ -566,7 +742,7 @@ def register_pair_staged(
     register_pair_staged; cfg.use_iss picks the ISS or the keypoint-any
     route).  `generator` (on the same device) drives the RANSAC draws.
     When `stage_times` is a dict, each stage is synchronised and its wall
-    seconds recorded there under the JAX package's LGR_STAGE_TIMING labels.
+    seconds added there under the JAX package's LGR_STAGE_TIMING labels.
     Returns the JAX result dict (transformation, metric, inliers,
     converged, n_correspondences, iterations), plus with
     return_correspondences "correspondences" = (query rows, matched rows,
@@ -591,19 +767,16 @@ def register_pair_staged(
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             now = time.perf_counter()
-            stage_times[label] = now - last[0]
+            # summed per label: after a failed feature-scale gate the classic
+            # route's side stages follow the feature-scale route's
+            stage_times[label] = stage_times.get(label, 0.0) + now - last[0]
             last[0] = now
 
     radii = tuple(float(v) for v in (normal_cell, density_cell_src, density_cell_tgt,
                                      iss_radius_src, iss_radius_tgt, feature_radius,
                                      distance_thr))
-    distance_thr = radii[6]
-    if cfg.use_iss:
-        j, keep, thr = _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii,
-                                  vp_src, vp_tgt, cfg, _t)
-    else:
-        j, keep, thr = _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii[0], radii[5],
-                                  distance_thr, vp_src, vp_tgt, cfg, _t)
+    route = _iss_route if cfg.use_iss else _any_route
+    j, keep, thr = route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
     res = ransac_solve(src_xyz, tgt_xyz[j], thr, keep, generator, cfg)
     _t("ransac")
     if return_correspondences:

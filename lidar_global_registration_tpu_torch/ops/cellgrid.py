@@ -52,7 +52,10 @@ class GridPlan:
     oid:     i32[n_valid] = order[:n_valid], the input id of each query;
     cell_of: i32[n_valid] CSR row of each sorted point's cell;
     cols:    i32[n_cells, 9, 2] [start, end) of the 9 stencil columns;
-    valid:   bool[N] input-order validity."""
+    valid:   bool[N] input-order validity;
+    origin, cell, dims, keys: the grid (f64[3] corner, widened cell size,
+             i64[3] cells per axis) and the sorted cell keys i64[n_valid],
+             which place any position on it (position_cols)."""
 
     order: torch.Tensor
     n_valid: int
@@ -62,6 +65,31 @@ class GridPlan:
     cell_of: torch.Tensor
     cols: torch.Tensor
     valid: torch.Tensor
+    origin: torch.Tensor
+    cell: float
+    dims: torch.Tensor
+    keys: torch.Tensor
+
+
+def _column_ranges(keys: torch.Tensor, cx, cy, cz, dims: torch.Tensor, s: int = 1):
+    """[start, end) ranges (i64[m, (2s+1)^2, 2]) of the sorted `keys` in
+    the z-columns of every cell within s cells (Chebyshev) of the cells
+    (cx, cy, cz) i64[m]: for each (dx, dy), x-major, the contiguous key
+    run from z - s to z + s (z is the fastest key axis).  Cells may lie
+    off the grid; their off-grid columns are empty."""
+    dev = keys.device
+    off = torch.arange(-s, s + 1, dtype=torch.int64, device=dev)
+    ox = off.repeat_interleave(2 * s + 1)
+    oy = off.repeat(2 * s + 1)
+    nx, ny, nz = dims[0], dims[1], dims[2]
+    xs = cx[:, None] + ox[None, :]
+    ys = cy[:, None] + oy[None, :]
+    inb = ((xs >= 0) & (xs < nx) & (ys >= 0) & (ys < ny)
+           & ((cz + s >= 0) & (cz - s < nz))[:, None])
+    base = (xs * ny + ys) * nz
+    start = torch.searchsorted(keys, base + (cz - s).clamp_min(0)[:, None], right=False)
+    end = torch.searchsorted(keys, base + torch.minimum(cz + s, nz - 1)[:, None], right=True)
+    return torch.stack([torch.where(inb, start, 0), torch.where(inb, end, 0)], -1)
 
 
 def plan_grid(xyz: torch.Tensor, valid: torch.Tensor, cell: float) -> GridPlan:
@@ -79,6 +107,7 @@ def plan_grid(xyz: torch.Tensor, valid: torch.Tensor, cell: float) -> GridPlan:
         c = torch.floor((x64 - origin) / cell).clamp_min(0).to(torch.int64)
         dims = c[valid].amax(0) + 1
     else:
+        origin = torch.zeros(3, dtype=torch.float64, device=dev)
         c = torch.zeros((N, 3), dtype=torch.int64, device=dev)
         dims = torch.ones(3, dtype=torch.int64, device=dev)
     ny, nz = dims[1], dims[2]
@@ -92,27 +121,23 @@ def plan_grid(xyz: torch.Tensor, valid: torch.Tensor, cell: float) -> GridPlan:
         torch.arange(n_cells, dtype=torch.int32, device=dev), counts
     )
     cx, cy, cz = uniq // (ny * nz), (uniq // nz) % ny, uniq % nz
-    off = torch.tensor([-1, 0, 1], dtype=torch.int64, device=dev)
-    ox = off.repeat_interleave(3)  # the 9 (dx, dy) columns, x-major
-    oy = off.repeat(3)
-    nx_ = cx[:, None] + ox[None, :]
-    ny_ = cy[:, None] + oy[None, :]
-    inb = (nx_ >= 0) & (nx_ < dims[0]) & (ny_ >= 0) & (ny_ < ny)
-    base = (nx_ * ny + ny_) * nz
-    klo = base + (cz - 1).clamp_min(0)[:, None]
-    khi = base + torch.minimum(cz + 1, nz - 1)[:, None]
-    start = torch.searchsorted(ks, klo, right=False)
-    end = torch.searchsorted(ks, khi, right=True)
-    start = torch.where(inb, start, 0)
-    end = torch.where(inb, end, 0)
-    cols = torch.stack([start, end], -1).to(torch.int32).contiguous()
+    cols = _column_ranges(ks, cx, cy, cz, dims).to(torch.int32).contiguous()
     pad = torch.zeros((N, 1), dtype=torch.float32, device=dev)
     pts = torch.cat([xyz.to(torch.float32)[order], pad], 1).contiguous()
     return GridPlan(
         order=order, n_valid=n_valid, pts=pts, nrm=torch.zeros_like(pts),
         oid=order[:n_valid].to(torch.int32).contiguous(), cell_of=cell_of,
-        cols=cols, valid=valid,
+        cols=cols, valid=valid, origin=origin, cell=cell, dims=dims, keys=ks,
     )
+
+
+def position_cols(plan: GridPlan, xyz: torch.Tensor) -> torch.Tensor:
+    """i64[m, 9, 2]: the 9 stencil column ranges of the cell that holds
+    each position xyz f32[m, 3] (any point, on the plan's cloud or not; its
+    cell may be empty or off the grid), found with plan_grid's
+    searchsorted."""
+    c = torch.floor((xyz.to(torch.float64) - plan.origin) / plan.cell).to(torch.int64)
+    return _column_ranges(plan.keys, c[:, 0], c[:, 1], c[:, 2], plan.dims)
 
 
 def set_normals(plan: GridPlan, normal: torch.Tensor) -> GridPlan:
@@ -131,22 +156,29 @@ def _unsort(plan: GridPlan, sorted_rows: torch.Tensor, fill=0.0) -> torch.Tensor
     return out
 
 
-def candidates_at(plan: GridPlan, slots: torch.Tensor):
-    """Padded candidate block of the sorted queries `slots` (i64[m]):
-    (ids i64[m, L], ok bool[m, L]) — every point of the 9 stencil columns,
-    in column order."""
-    cols = plan.cols[plan.cell_of[slots].long()].long()  # [m, 9, 2]
+def candidates_from_cols(cols: torch.Tensor):
+    """Padded candidate block of queries with stencil column ranges
+    `cols` (i64[m, C, 2]): (ids i64[m, L], ok bool[m, L]), every sorted
+    slot of the columns, in column order."""
+    cols = cols.long()
     start = cols[..., 0]
     ln = cols[..., 1] - start
     cum = ln.cumsum(1)
     tot = cum[:, -1]
     L = max(int(tot.max()) if tot.numel() else 0, 1)
     k = torch.arange(L, device=cols.device)[None, :].expand(cols.shape[0], L).contiguous()
-    col = torch.searchsorted(cum, k, right=True).clamp_max(8)
+    col = torch.searchsorted(cum, k, right=True).clamp_max(cols.shape[1] - 1)
     before = cum.gather(1, col) - ln.gather(1, col)
     ids = start.gather(1, col) + (k - before)
     ok = k < tot[:, None]
     return torch.where(ok, ids, 0), ok
+
+
+def candidates_at(plan: GridPlan, slots: torch.Tensor):
+    """Padded candidate block of the sorted queries `slots` (i64[m]):
+    (ids i64[m, L], ok bool[m, L]) — every point of the 9 stencil columns,
+    in column order."""
+    return candidates_from_cols(plan.cols[plan.cell_of[slots].long()])
 
 
 def candidates(plan: GridPlan, q0: int, q1: int):
@@ -285,77 +317,108 @@ def smallest_eig3(a00, a01, a02, a11, a12, a22):
 # ---------------------------------------------------------------------------
 # K1 · surface: radius moments -> normal, curvature, eigenvalues, count, NN
 # ---------------------------------------------------------------------------
-def surface_plain(plan: GridPlan, r2: float):
+def _surface_rows(plan: GridPlan, r2: float, slots: torch.Tensor, oid: torch.Tensor):
+    """K1's rows (f32[m, 8], nn_d f32[m], nn_id i32[m]) of the sorted
+    queries `slots`."""
+    ids, ok = candidates_at(plan, slots)
+    dx, dy, dz, d2 = _pair_d2(plan, slots, ids)
+    w = (ok & (d2 <= r2)).to(torch.float32)
+    s0 = w.sum(1)
+    cnt = s0.clamp_min(1.0)
+    mx, my, mz = (dx * w).sum(1) / cnt, (dy * w).sum(1) / cnt, (dz * w).sum(1) / cnt
+    l0, l1, l2, vx, vy, vz = smallest_eig3(
+        (dx * dx * w).sum(1) / cnt - mx * mx,
+        (dx * dy * w).sum(1) / cnt - mx * my,
+        (dx * dz * w).sum(1) / cnt - mx * mz,
+        (dy * dy * w).sum(1) / cnt - my * my,
+        (dy * dz * w).sum(1) / cnt - my * mz,
+        (dz * dz * w).sum(1) / cnt - mz * mz,
+    )
+    tot = (l0 + l1 + l2).clamp_min(1e-30)
+    curv = l0.clamp_min(0.0) / tot
+    rows = torch.stack([vx, vy, vz, curv, l0, l1, l2, s0], 1)
+    dpos = torch.where((w > 0) & (d2 > 0.0), d2, torch.inf)
+    dmin = dpos.amin(1)
+    cand = torch.where(dpos == dmin[:, None], oid[ids], _INT32_MAX)
+    has = torch.isfinite(dmin)
+    return (rows, torch.where(has, dmin, 0.0).sqrt(),
+            torch.where(has, cand.amin(1), -1).to(torch.int32))
+
+
+def surface_plain(plan: GridPlan, r2: float, slots=None):
     """Plain version of csrc/surface.cu.  Per sorted query: moments of the
     neighbours within r (self included) centred on the query, covariance,
     smallest eigenpair; nearest neighbour at nonzero distance (ties to the
     lowest input id).  Returns (out f32[n, 8] = normal xyz, curvature,
     l0, l1, l2, count; nn_d f32[n] (0 without a neighbour); nn_id i32[n]
-    input id, -1 without a neighbour)."""
+    input id, -1 without a neighbour).  With `slots` (i64[m] sorted slots)
+    only those queries are computed; every other row stays 0 / 0 / -1."""
     dev = plan.pts.device
     n = plan.n_valid
     out = torch.zeros((n, 8), dtype=torch.float32, device=dev)
     nn_d = torch.zeros((n,), dtype=torch.float32, device=dev)
     nn_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
     oid = plan.order.to(torch.int32)
-    for q0, q1 in _query_chunks(plan):
-        ids, ok = candidates(plan, q0, q1)
-        q = plan.pts[q0:q1, None, :3]
-        d = plan.pts[ids, :3] - q
-        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-        d2 = dx * dx + dy * dy + dz * dz
-        w = (ok & (d2 <= r2)).to(torch.float32)
-        s0 = w.sum(1)
-        cnt = s0.clamp_min(1.0)
-        mx, my, mz = (dx * w).sum(1) / cnt, (dy * w).sum(1) / cnt, (dz * w).sum(1) / cnt
-        l0, l1, l2, vx, vy, vz = smallest_eig3(
-            (dx * dx * w).sum(1) / cnt - mx * mx,
-            (dx * dy * w).sum(1) / cnt - mx * my,
-            (dx * dz * w).sum(1) / cnt - mx * mz,
-            (dy * dy * w).sum(1) / cnt - my * my,
-            (dy * dz * w).sum(1) / cnt - my * mz,
-            (dz * dz * w).sum(1) / cnt - mz * mz,
-        )
-        tot = (l0 + l1 + l2).clamp_min(1e-30)
-        curv = l0.clamp_min(0.0) / tot
-        out[q0:q1] = torch.stack([vx, vy, vz, curv, l0, l1, l2, s0], 1)
-        dpos = torch.where((w > 0) & (d2 > 0.0), d2, torch.inf)
-        dmin = dpos.amin(1)
-        cand = torch.where(dpos == dmin[:, None], oid[ids], _INT32_MAX)
-        has = torch.isfinite(dmin)
-        nn_d[q0:q1] = torch.where(has, dmin, 0.0).sqrt()
-        nn_id[q0:q1] = torch.where(has, cand.amin(1), -1)
+    if slots is None:
+        chunks = [torch.arange(a, b, device=dev) for a, b in _query_chunks(plan)]
+    else:
+        chunks = [sl for _pos, sl in _slot_chunks(plan, slots)]
+    for sl in chunks:
+        out[sl], nn_d[sl], nn_id[sl] = _surface_rows(plan, r2, sl, oid)
+    return out, nn_d, nn_id
+
+
+def _launch_surface(plan: GridPlan, r2: float, slots, m: int):
+    n = plan.n_valid
+    dev = plan.pts.device
+    out = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+    nn_d = torch.zeros((n,), dtype=torch.float32, device=dev)
+    nn_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out, nn_d, nn_id
+    _check_plan(plan)
+    if slots is not None:
+        kernels.check(slots, torch.int32, (m,), "slots")
+    kernels.launch(
+        "lgr_surface", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+        plan.cols.data_ptr(), plan.oid.data_ptr(), 0 if slots is None else slots.data_ptr(),
+        m, r2, out.data_ptr(), nn_d.data_ptr(), nn_id.data_ptr(), _stream(plan),
+    )
     return out, nn_d, nn_id
 
 
 def surface_cuda(plan: GridPlan, r2: float):
-    """K1 · csrc/surface.cu: same contract as surface_plain."""
-    n = plan.n_valid
-    dev = plan.pts.device
-    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
-    nn_d = torch.empty((n,), dtype=torch.float32, device=dev)
-    nn_id = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out, nn_d, nn_id
-    _check_plan(plan)
-    kernels.launch(
-        "lgr_surface", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-        plan.cols.data_ptr(), plan.oid.data_ptr(), n, r2,
-        out.data_ptr(), nn_d.data_ptr(), nn_id.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    surface_cuda.launches += 1
-    return out, nn_d, nn_id
+    """K1 · csrc/surface.cu over every query: same contract as
+    surface_plain without slots."""
+    out = _launch_surface(plan, r2, None, plan.n_valid)
+    if plan.n_valid:
+        surface_cuda.launches += 1
+    return out
 
 
 surface_cuda.launches = 0
 
 
-def surface_sorted(plan: GridPlan, r2: float):
+def surface_at_cuda(plan: GridPlan, r2: float, slots: torch.Tensor):
+    """K1 slot-list form · `surface_kernel` over the sorted queries
+    `slots`: same contract as surface_plain with slots."""
+    sl = slots.to(torch.int32).contiguous()
+    out = _launch_surface(plan, r2, sl, sl.shape[0])
+    if sl.shape[0]:
+        surface_at_cuda.launches += 1
+    return out
+
+
+surface_at_cuda.launches = 0
+
+
+def surface_sorted(plan: GridPlan, r2: float, slots=None):
     """K1 on the plan's device: the kernel on CUDA, the plain version on CPU."""
     if plan.pts.is_cuda:
-        return surface_cuda(plan, r2)
-    return surface_plain(plan, r2)
+        if slots is None:
+            return surface_cuda(plan, r2)
+        return surface_at_cuda(plan, r2, slots)
+    return surface_plain(plan, r2, slots)
 
 
 def _f32_square(r: float) -> float:
@@ -364,15 +427,22 @@ def _f32_square(r: float) -> float:
     return float(r32 * r32)
 
 
-def surface_pass(plan: GridPlan, normal_radius: float, viewpoint=None):
+def surface_pass(plan: GridPlan, normal_radius: float, viewpoint=None, need=None):
     """Surface pass on a plan (cellgrid.surface_pass + the epilogue of
-    _surface_iss_impl, cellgrid.py:1755-1784): normals flipped towards the
+    _surface_iss_impl, cellgrid.py:1734-1784): normals flipped towards the
     viewpoint and zeroed where fewer than 3 points lie within the radius,
     curvature, k=2 smoothed density through the nearest neighbour,
-    eigenvalues.  Returns (normal [N,3], curv [N], density [N],
-    eigvals [N,3], ok [N]) in input order."""
+    eigenvalues.  need (bool[N] input order): K1 runs only on the points
+    of the cells within one cell of a needed point, which holds every
+    needed point's nearest neighbour, so the density is exact at needed
+    points; ok = valid & count >= 3 & need, and the normal is 0 elsewhere.
+    Returns (normal [N,3], curv [N], density [N], eigvals [N,3], ok [N])
+    in input order."""
     dev = plan.pts.device
-    rows, nn_d, nn_id = surface_sorted(plan, _f32_square(normal_radius))
+    slots = None
+    if need is not None:
+        slots = stencil_slots(plan, torch.nonzero(need[plan.order[:plan.n_valid]]).squeeze(1))
+    rows, nn_d, nn_id = surface_sorted(plan, _f32_square(normal_radius), slots)
     rows = _unsort(plan, rows)
     dmin = _unsort(plan, nn_d)
     nnid = _unsort(plan, nn_id, fill=-1).long()
@@ -380,6 +450,8 @@ def surface_pass(plan: GridPlan, normal_radius: float, viewpoint=None):
     normal = rows[:, 0:3]
     cnt = rows[:, 7]
     ok = valid & (cnt >= 3)
+    if need is not None:
+        ok = ok & need
     vp = torch.zeros(3, dtype=torch.float32, device=dev) if viewpoint is None else (
         torch.as_tensor(viewpoint, dtype=torch.float32, device=dev))
     xyz = _unsort(plan, plan.pts[:plan.n_valid, :3])
@@ -794,18 +866,56 @@ def aabb_centre(plan: GridPlan) -> torch.Tensor:
     return 0.5 * (p.amin(0) + p.amax(0))
 
 
+def _union_slots(n: int, ranges: torch.Tensor) -> torch.Tensor:
+    """Ascending sorted slots of the union of [start, end) ranges
+    (i64[r, 2]): a difference array over the slots and one cumsum."""
+    diff = torch.zeros((n + 1,), dtype=torch.int32, device=ranges.device)
+    one = torch.ones((ranges.shape[0],), dtype=torch.int32, device=ranges.device)
+    diff.index_add_(0, ranges[:, 0], one)
+    diff.index_add_(0, ranges[:, 1], -one)
+    return torch.nonzero(diff.cumsum(0)[:n] > 0).squeeze(1)
+
+
 def stencil_slots(plan: GridPlan, slots: torch.Tensor) -> torch.Tensor:
     """Sorted slots (ascending) of every point in the 27-cell stencil of a
     cell that holds one of the sorted queries `slots`: the union of those
     cells' CSR column ranges (the `kp` stencil of _fpfh_impl's SPFH pass)."""
-    dev = plan.pts.device
     cells = torch.unique(plan.cell_of[slots])
-    cols = plan.cols[cells.long()].reshape(-1, 2).long()
-    diff = torch.zeros((plan.n_valid + 1,), dtype=torch.int32, device=dev)
-    one = torch.ones((cols.shape[0],), dtype=torch.int32, device=dev)
-    diff.index_add_(0, cols[:, 0], one)
-    diff.index_add_(0, cols[:, 1], -one)
-    return torch.nonzero(diff.cumsum(0)[:plan.n_valid] > 0).squeeze(1)
+    return _union_slots(plan.n_valid, plan.cols[cells.long()].reshape(-1, 2).long())
+
+
+def point_need(plan: GridPlan, flags: torch.Tensor, s: int) -> torch.Tensor:
+    """bool[N] input order: the valid points whose cell lies within `s`
+    cells (Chebyshev, on this plan's grid) of the cell of a flagged point
+    (flags bool[N] input order) (cellgrid.point_need).  Every point within
+    s x the plan's radius of a flagged point is marked.  Per cell, finer
+    than the JAX package's mask, which marks whole blocks of cells; the
+    distance guarantee is the same."""
+    N = plan.order.shape[0]
+    need = torch.zeros((N,), dtype=torch.bool, device=plan.order.device)
+    flagged = torch.nonzero(flags[plan.order[:plan.n_valid]]).squeeze(1)
+    if flagged.numel() == 0:
+        return need
+    keys = torch.unique(plan.keys[flagged])
+    ny, nz = plan.dims[1], plan.dims[2]
+    cx, cy, cz = keys // (ny * nz), (keys // nz) % ny, keys % nz
+    ranges = _column_ranges(plan.keys, cx, cy, cz, plan.dims, int(s)).reshape(-1, 2)
+    need[plan.order[_union_slots(plan.n_valid, ranges)]] = True
+    return need
+
+
+def surface_iss_masked(plan_n: GridPlan, plan_f: GridPlan, normal_radius: float,
+                       iss_radius: float, viewpoint=None, shot: bool = False):
+    """The keypoint-regime side stage (cellgrid.surface_iss_masked): ISS
+    keypoints on plan_n (K2-K4), then the surface pass (K1) masked to the
+    points a later stage reads: those within 2 cells of a keypoint on
+    plan_f's grid (the SPFH support of the keypoints' FPFH), or within 1
+    cell for SHOT.  plan_n's cell holds both radii.  Returns (normal, kp,
+    density, saliency) in input order."""
+    kp, sal = iss_pass(plan_n, iss_radius)
+    need = point_need(plan_f, kp, 1 if shot else 2)
+    normal, _curv, density, _eig, _ok = surface_pass(plan_n, normal_radius, viewpoint, need=need)
+    return normal, kp, density, sal
 
 
 def fpfh_pass(plan: GridPlan, radius: float, kp=None, kp_rows=None):

@@ -43,8 +43,11 @@ def _rot():
                     np.float32)
 
 
-@pytest.fixture(scope="module")
-def runs():
+def run_pair(radii=RADII, **cfg):
+    """The fixture pair through both packages with bench.py's ISS settings
+    (bench.py:238-256) changed by `cfg`; the JAX side with its Pallas cells
+    in interpret mode.  Returns both results, both packages' printed
+    notices, the port's stage times and the ground truth."""
     rng = np.random.default_rng(7)
     a = (_scene(N, 3) + rng.normal(scale=0.004, size=(N, 3))).astype(np.float32)
     b = ((_scene(N, 4) + rng.normal(scale=0.004, size=(N, 3))) @ _rot().T
@@ -52,27 +55,44 @@ def runs():
     vp_a = np.array([5.0, 5.0, 30.0], np.float32)
     vp_b = (_rot() @ vp_a + OFF).astype(np.float32)
     ones = np.ones(N, bool)
-    # bench.py:238-256 in ISS mode
-    jcfg = jfl.FlagshipConfig(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
-                              metric="uniformity")
+    settings = dict(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
+                    metric="uniformity")
+    jcfg = jfl.FlagshipConfig(**{**settings, **cfg})
     out = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
         mp.setenv("LGR_CELL_FPFH", "force")
         jout = jfl.register_pair_staged(
             jnp.asarray(a), jnp.asarray(ones), jnp.asarray(b), jnp.asarray(ones),
-            jax.random.PRNGKey(SEED), *RADII, vp_src=jnp.asarray(vp_a),
+            jax.random.PRNGKey(SEED), *radii, vp_src=jnp.asarray(vp_a),
             vp_tgt=jnp.asarray(vp_b), cfg=jcfg, return_correspondences=True)
     tones = torch.ones(N, dtype=torch.bool)
     times = {}
-    tout = tfl.register_pair_staged(
-        torch.from_numpy(a), tones, torch.from_numpy(b), tones,
-        torch.Generator().manual_seed(SEED), *RADII, vp_src=torch.from_numpy(vp_a),
-        vp_tgt=torch.from_numpy(vp_b), cfg=tfl.config_from_jax(jcfg.__dict__),
-        return_correspondences=True, stage_times=times)
+    tlog = io.StringIO()
+    with contextlib.redirect_stdout(tlog):
+        tout = tfl.register_pair_staged(
+            torch.from_numpy(a), tones, torch.from_numpy(b), tones,
+            torch.Generator().manual_seed(SEED), *radii, vp_src=torch.from_numpy(vp_a),
+            vp_tgt=torch.from_numpy(vp_b), cfg=tfl.config_from_jax(jcfg.__dict__),
+            return_correspondences=True, stage_times=times)
     T_gt = np.eye(4, dtype=np.float32)
     T_gt[:3, :3] = _rot()
     T_gt[:3, 3] = OFF
-    return dict(jout=jout, tout=tout, jlog=out.getvalue(), times=times, T_gt=T_gt)
+    return dict(jout=jout, tout=tout, jlog=out.getvalue(), tlog=tlog.getvalue(), times=times,
+                T_gt=T_gt)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_pair()
+
+
+def pair_share(runs):
+    """(JAX's cluster correspondences, the share of them the port has)."""
+    rows, match, _thr, ok = (np.asarray(v) for v in runs["jout"]["correspondences"])
+    jax_pairs = set(zip(rows[ok].tolist(), match[ok].tolist()))
+    trows, tmatch, _tthr, tok = runs["tout"]["correspondences"]
+    port_pairs = set(zip(trows[tok].tolist(), tmatch[tok].tolist()))
+    return jax_pairs, len(jax_pairs & port_pairs) / max(len(jax_pairs), 1)
 
 
 def _errors(T, T_gt):
@@ -103,11 +123,7 @@ def test_rotations_agree(runs):
 
 
 def test_cluster_correspondences_agree(runs):
-    rows, match, _thr, ok = (np.asarray(v) for v in runs["jout"]["correspondences"])
-    jax_pairs = set(zip(rows[ok].tolist(), match[ok].tolist()))
-    trows, tmatch, _tthr, tok = runs["tout"]["correspondences"]
-    port_pairs = set(zip(trows[tok].tolist(), tmatch[tok].tolist()))
-    share = len(jax_pairs & port_pairs) / len(jax_pairs)
+    jax_pairs, share = pair_share(runs)
     # measured: all 178 of the JAX package's pairs, and no other.  A
     # descriptor whose bin-edge pair flips (atan2f against the TPU
     # polynomial) could flip a near-tied 1-NN and move the consensus gate

@@ -180,7 +180,7 @@ def test_config_from_jax_round_trip():
     dict(use_iss=False, alignment="gror"),
     dict(use_iss=False, pyramid=True),
     dict(use_iss=False, bf16_matching=True),
-    dict(feature_scale=False),  # the classic masked route
+    dict(descriptor="shot", lrf="gt"),  # ground-truth SHOT frames
     dict(use_iss=False, use_cell_fpfh=False),
 ])
 def test_config_from_jax_refuses_other_routes(change):
