@@ -7,17 +7,21 @@ Builds the kernels of lidar_global_registration_tpu_torch/csrc from
 source and drives the ported routes of `models.flagship.register_pair_staged`:
 
   keypoint-any (bench.py:177-190): K1, K5, K6, K7 checked against their
-      plain PyTorch versions at 65,536 points; the bench's 65,536-point
-      pair, one warm-up and three timed repeats; a 4,096-point pair through
-      the kernels and the plain versions; one 262,144-point pair.
+      plain PyTorch versions at 65,536 points (K6 also on shuffled,
+      repeated and padding slots); K7 at the edges of its tiling (D in {1,
+      33, 352, 512}, nq in {1, 127, 129, 22203}, duplicate rows across
+      every split of the train range, no valid row); the bench's
+      65,536-point pair, one warm-up and three timed repeats; a 4,096-point
+      pair through the kernels and the plain versions; K6 and K7 checked at
+      262,144 points, then one 262,144-point pair.
   ISS (the bench's flagship row, bench.py:159-176, 194-256, 420-438):
       the box + mound pair at 10,485,760 points per side, sampled on the
       card; radii derived on the raw pair and again after the
       loader-equivalent pre-downsample, both outside the timed region;
       K2, K3, K4 and the K5 / K6 subset forms checked at the shapes of the
-      pre-downsampled working cloud, K1's slot-list form at the classic
-      masked route's need slots there, K7 at D = 352 on the pair's SHOT
-      keypoint descriptors.  Then on that pair, pre-downsample +
+      pre-downsampled working cloud, K1's slot-list form and the K5 / K6
+      subset forms at the classic masked route's shapes there, K7 at D =
+      33 and D = 352 on the pair's FPFH and SHOT keypoint descriptors.  Then on that pair, pre-downsample +
       register_pair_staged:
         FPFH feature-scale route (the flagship row): warm-up + 3 repeats;
         the shipped SHOT regime (descriptor shot, lrf gravity; bench.py with
@@ -33,7 +37,10 @@ error < distance_thr, bench.py:327).  Each route's launch counters are set
 to 0 just before its runs and must all have risen after them.
 
 The next-to-last line of standard output is a JSON object with one entry
-per kernel; the last is {"ok": true, "device": {...}}.  Any failure exits
+per kernel and shape: its launches on the main path, its error against the
+plain version, its time, the plain version's, the bound (bound_ms,
+bound_by) and, for K7, the library yardstick (library_ms); the last is
+{"ok": true, "device": {...}}.  Any failure exits
 non-zero without those lines.  Needs one CUDA device; JAX is never imported.
 """
 from __future__ import annotations
@@ -105,6 +112,59 @@ def frac_off(a, b, thr=0.5) -> float:
     return float(((a - b).abs() > thr).float().mean())
 
 
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once) over
+# the H100 SXM's 3.35 TB/s and its float32 operations over 67 TFLOP/s (no
+# tensor cores).  Operations are counted from each kernel's source on this
+# run's data: every stencil candidate costs a distance test (3 sub, 3 mul,
+# 2 add); each pair within r and each query add what the kernel computes
+# for them (rounded).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+CAND_FLOPS = 8
+PAIR_FLOPS = {"surface": 16, "iss_count": 0, "iss_saliency": 17, "iss_nms": 1, "spfh": 80,
+              "combine": 67}
+QUERY_FLOPS = {"surface": 200, "iss_count": 0, "iss_saliency": 200, "iss_nms": 0, "spfh": 0,
+               "combine": 165}
+
+
+def tbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def stencil_bound(kind: str, plan, pairs, nbytes: int, slots=None) -> dict:
+    """bound() of a cell-list kernel over the sorted queries `slots` (all
+    when None; padding < 0 skipped) with `pairs` pairs within r."""
+    per_cell = (plan.cols[:, :, 1] - plan.cols[:, :, 0]).sum(1).double()
+    cells = plan.cell_of if slots is None else plan.cell_of[slots[slots >= 0].long()]
+    cand = float(per_cell[cells.long()].sum())
+    flops = CAND_FLOPS * cand + PAIR_FLOPS[kind] * float(pairs) + QUERY_FLOPS[kind] * cells.numel()
+    return bound(nbytes, flops)
+
+
+def nn_bound(q, t, tvalid, d2, idx) -> dict:
+    """bound() of K7: 2 nq nt D for the products, 4 nq nt for d2 and the argmin."""
+    nq, nt = q.shape[0], t.shape[0]
+    return bound(tbytes(q, t, tvalid, d2, idx), 2.0 * nq * nt * q.shape[1] + 4.0 * nq * nt)
+
+
+def library_nn(q, t, tvalid, tile: int = 4096):
+    """K7's yardstick: cuBLAS's float32 product with the train norms folded
+    in (`torch.addmm`) and `torch.min` over it, in chunks of `tile` queries
+    (|q|^2 does not move a row's argmin)."""
+    import torch
+
+    tn = torch.where(tvalid, (t * t).sum(1), 3.0e38)[None, :]
+    return [torch.addmm(tn, q[s:s + tile], t.T, alpha=-2.0).min(1)
+            for s in range(0, q.shape[0], tile)]
+
+
 def check_kernels(dev, a, b, radii):
     """Each kernel against its plain version on the card, at the main path's
     shapes; returns the per-kernel records (launches filled in later)."""
@@ -146,6 +206,9 @@ def check_kernels(dev, a, b, radii):
         max_abs_err=float(err.max()),
         ms=cuda_ms(lambda: cg.surface_cuda(plan_n, r2n), 10),
         plain_ms=cuda_ms(lambda: cg.surface_plain(plan_n, r2n), 2),
+        **stencil_bound("surface", plan_n, out_p[:, 7].sum(), tbytes(
+            plan_n.pts, plan_n.cell_of, plan_n.cols, plan_n.oid, out_k, d_k, id_k)),
+        library_ms=None,
     ))
     log(f"# K1 surface ok: n={plan_n.n_valid} max_abs_err={records[-1]['max_abs_err']:.3g}")
 
@@ -165,6 +228,9 @@ def check_kernels(dev, a, b, radii):
         max_abs_err=float((sp_k - sp_p).abs().max()),
         ms=cuda_ms(lambda: cg.spfh_cuda(plan_f, r2f, cen), 5),
         plain_ms=cuda_ms(lambda: cg.spfh_plain(plan_f, r2f, cen), 1),
+        **stencil_bound("spfh", plan_f, c_p.sum(), tbytes(
+            plan_f.pts, plan_f.nrm, plan_f.cell_of, plan_f.cols, sp_k, c_k)),
+        library_ms=None,
     ))
     log(f"# K5 spfh ok: frac_off={f5:.2e} max_abs_err={records[-1]['max_abs_err']:.3g}")
     f_k, k_k = cg.combine_cuda(plan_f, r2f, sp_p)
@@ -178,8 +244,26 @@ def check_kernels(dev, a, b, radii):
         max_abs_err=float((f_k - f_p).abs().max()),
         ms=cuda_ms(lambda: cg.combine_cuda(plan_f, r2f, sp_p), 5),
         plain_ms=cuda_ms(lambda: cg.combine_plain(plan_f, r2f, sp_p), 1),
+        **stencil_bound("combine", plan_f, k_p.sum(), tbytes(
+            plan_f.pts, plan_f.cell_of, plan_f.cols, sp_p, f_k, k_k)),
+        library_ms=None,
     ))
     log(f"# K6 combine ok: frac_off={f6:.2e} max_abs_err={records[-1]['max_abs_err']:.3g}")
+    # K6's slot form on unsorted, repeated and padding slots: the full
+    # kernel's rows there bit for bit, zeros at the padding, counts equal to
+    # the plain version's
+    gen = torch.Generator().manual_seed(5)
+    pick = torch.randint(0, plan_f.n_valid, (3000,), generator=gen)
+    mixed = torch.cat([pick, pick[:200], torch.full((64,), -1)])
+    mixed = mixed[torch.randperm(mixed.numel(), generator=gen)].to(dev)
+    f_m, k_m = cg.combine_at_cuda(plan_f, r2f, sp_p, mixed)
+    real = mixed >= 0
+    assert torch.equal(f_m[real], f_k[mixed[real]]) and torch.equal(k_m[real], k_k[mixed[real]])
+    assert not bool(f_m[~real].any()) and not bool(k_m[~real].any())
+    f_mp, k_mp = cg.combine_plain(plan_f, r2f, sp_p, mixed)
+    assert torch.equal(k_m, k_mp) and frac_off(f_m, f_mp) < 1e-3, "K6 mixed slots"
+    log(f"# K6 slot form ok on {mixed.numel()} shuffled slots ({int((~real).sum())} padding, "
+        f"200 repeats)")
 
     # K7 nn: source descriptors against target descriptors, D = 33
     feat_s, fv_s = cg.fpfh_pass(plan_f, rf)
@@ -197,12 +281,117 @@ def check_kernels(dev, a, b, radii):
         name="nn_l2", route="cuda", source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
         replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
         max_abs_err=float((dk - dp).abs().max()),
-        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(feat_s, feat_t, fv_t), 3),
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(feat_s, feat_t, fv_t), 5),
         plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(feat_s, feat_t, fv_t), 1),
+        **nn_bound(feat_s, feat_t, fv_t, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(feat_s, feat_t, fv_t), 2),
     ))
     log(f"# K7 nn_l2 ok: D={feat_s.shape[1]} idx_mismatch={int((ik != ip).sum())} "
         f"max_abs_err={records[-1]['max_abs_err']:.3g}")
     return records
+
+
+def check_nn_edges(dev):
+    """K7 against its plain version where its tiling has edges: D in {1, 33,
+    352, 512} and nq in {1, 127, 129, 22203} against nt = 5003 train rows
+    (not a multiple of a tile or a chunk); exact duplicate rows on both sides
+    of every boundary of the train split, far apart and at the ends; no
+    valid train row at all."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+
+    rng = np.random.default_rng(11)
+    nt = 5003
+    for D in (1, 33, 352, 512):
+        t = torch.from_numpy(rng.normal(size=(nt, D)).astype(np.float32)).to(dev)
+        tv = torch.from_numpy(rng.random(nt) > 0.05).to(dev)
+        for nq in (1, 127, 129, 22203):
+            q = torch.from_numpy(rng.normal(size=(nq, D)).astype(np.float32)).to(dev)
+            d2k, ik = nn_l2.nn_l2_cuda(q, t, tv)
+            d2p, ip = nn_l2.nn_l2_plain(q, t, tv)
+            # plain fp32 q @ t.T sums in another order: d2 within 1e-5
+            # relatively, and a different index only at a near tie
+            torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-5)
+            diff = ik != ip
+            near = (d2k - d2p).abs() <= 1e-5 * d2p.abs() + 1e-5
+            assert bool(near[diff].all()), f"K7 D={D} nq={nq}: an index differs beyond a tie"
+            assert bool(tv[ik.long()].all()), f"K7 D={D} nq={nq}: an invalid row won"
+    resident = nn_l2._resident_blocks(dev, 33)
+    for nq in (129, 22203):
+        S, per = nn_l2.split_plan(nq, nt, resident)
+        assert S > 1, (nq, S)
+        t = rng.normal(size=(nt, 33)).astype(np.float32)
+        q = rng.normal(size=(nq, 33)).astype(np.float32)
+        cuts = [k * per * nn_l2.TILE for k in range(1, S)]
+        pairs = [(0, nt - 1), (5, nt - 3)] + [(c - 1, c) for c in cuts]
+        for k, (lo, hi) in enumerate(pairs):  # query k's row sits at lo and hi
+            t[hi] = t[lo]
+            q[k] = t[lo]
+        tt = torch.from_numpy(t).to(dev)
+        tv = torch.ones(nt, dtype=torch.bool, device=dev)
+        d2k, ik = nn_l2.nn_l2_cuda(torch.from_numpy(q).to(dev), tt, tv)
+        got = ik[:len(pairs)].tolist()
+        assert got == [lo for lo, _ in pairs], f"K7 ties across the split: {got}"
+        d2k, ik = nn_l2.nn_l2_cuda(torch.from_numpy(q).to(dev), tt, torch.zeros_like(tv))
+        assert bool((d2k == nn_l2.BIG).all()) and not bool(ik.any()), "K7 with no valid row"
+        log(f"# K7 split nq={nq}: {S} ranges of {per} tiles, lowest index at every cut")
+    log("# K7 edges ok: D 1/33/352/512 x nq 1/127/129/22203 vs plain, ties, no valid row")
+
+
+def check_large(dev, a, b, radii):
+    """K6's full form and K7 at 262,144 points, the large pair's shapes,
+    each against its plain version."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+
+    ones = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+    rn, rf = radii["normal_cell"], radii["feature"]
+    r2f = cg._f32_square(rf)
+    feats = []
+    for x in (a, b):
+        X = torch.from_numpy(x).to(dev)
+        pf = cg.set_normals(cg.plan_grid(X, ones, rf),
+                            cg.surface_pass(cg.plan_grid(X, ones, rn), rn)[0])
+        feats.append(cg.fpfh_pass(pf, rf))
+        if len(feats) == 1:
+            sp, _ = cg.spfh_cuda(pf, r2f, cg.aabb_centre(pf))
+            f_k, k_k = cg.combine_cuda(pf, r2f, sp)
+            f_p, k_p = cg.combine_plain(pf, r2f, sp)
+            assert torch.equal(k_k, k_p), "K6 (262k) neighbour counts differ"
+            f6 = frac_off(f_k, f_p)
+            assert f6 < 1e-3 and float((f_k - f_p).abs().median()) < 1e-3, f"K6 262k: {f6:.2e}"
+            rec6 = dict(
+                name="combine_262k", route="cuda",
+                source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
+                replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1608",
+                max_abs_err=float((f_k - f_p).abs().max()), queries=int(pf.n_valid),
+                ms=cuda_ms(lambda: cg.combine_cuda(pf, r2f, sp), 5),
+                plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, sp), 1),
+                **stencil_bound("combine", pf, k_p.sum(), tbytes(
+                    pf.pts, pf.cell_of, pf.cols, sp, f_k, k_k)),
+                library_ms=None)
+            log(f"# K6 at {pf.n_valid} points ok: max_abs_err={rec6['max_abs_err']:.3g}")
+    (fs, _fvs), (ft, fvt) = feats
+    d2k, ik = nn_l2.nn_l2_cuda(fs, ft, fvt)
+    d2p, ip = nn_l2.nn_l2_plain(fs, ft, fvt)
+    dk, dp = d2k.clamp_min(0).sqrt(), d2p.clamp_min(0).sqrt()
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5)
+    same = (dk - dp).abs() <= 1e-6
+    assert torch.equal(ik[same], ip[same]), "K7 (262k) indices differ where distances agree"
+    rec7 = dict(
+        name="nn_l2_262k", route="cuda", source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((dk - dp).abs().max()), shape=[int(fs.shape[0]), int(ft.shape[0]), 33],
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fs, ft, fvt), 3),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fs, ft, fvt), 1),
+        **nn_bound(fs, ft, fvt, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(fs, ft, fvt), 1))
+    log(f"# K7 at {fs.shape[0]}^2 ok: {rec7['ms']:.2f} ms, plain {rec7['plain_ms']:.2f}, "
+        f"library {rec7['library_ms']:.2f}, idx_mismatch={int((ik != ip).sum())}")
+    return [rec6, rec7]
 
 
 def register(dev, a, b, vp_a, vp_b, radii, seed, times=None):
@@ -303,7 +492,9 @@ def check_iss_kernels(sx, sv, radii):
         name="iss_count", route="cuda", source=src + "iss.cu", replaces=pallas + "1322",
         max_abs_err=float((c_k - c_p).abs().max()),
         ms=cuda_ms(lambda: cg.iss_count_cuda(plan, r2), 5),
-        plain_ms=cuda_ms(lambda: cg.iss_count_plain(plan, r2), 1)))
+        plain_ms=cuda_ms(lambda: cg.iss_count_plain(plan, r2), 1),
+        **stencil_bound("iss_count", plan, c_p.sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, c_k)), library_ms=None))
     log(f"# K2 iss_count ok: n={n} r={r_iss:.4f} mean count {float(c_p.float().mean()):.1f}")
     # K3: the weighted scatter's smallest eigenvalue is a float32
     # cancellation residue of sums taken in another order (thread registers
@@ -322,7 +513,9 @@ def check_iss_kernels(sx, sv, radii):
         name="iss_saliency", route="cuda", source=src + "iss.cu", replaces=pallas + "1344",
         max_abs_err=float(err.max()) if err.numel() else 0.0, ok_flips=flips,
         ms=cuda_ms(lambda: cg.iss_saliency_cuda(plan, r2, c_p, 0.975, 0.975), 5),
-        plain_ms=cuda_ms(lambda: cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975), 1)))
+        plain_ms=cuda_ms(lambda: cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975), 1),
+        **stencil_bound("iss_saliency", plan, nb_p.sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, c_p, s_k, ok_k, nb_k)), library_ms=None))
     log(f"# K3 iss_saliency ok: {int(ok_p.sum())} pass the gates, {flips} flips, "
         f"max_abs_err={records[-1]['max_abs_err']:.3g}")
     # K4 on one saliency input: any difference is the kernel's own
@@ -333,7 +526,9 @@ def check_iss_kernels(sx, sv, radii):
         name="iss_nms", route="cuda", source=src + "iss.cu", replaces=pallas + "1410",
         max_abs_err=float((kp_k != kp_p).sum()),
         ms=cuda_ms(lambda: cg.iss_nms_cuda(plan, r2, s_p, ok_p, 4), 5),
-        plain_ms=cuda_ms(lambda: cg.iss_nms_plain(plan, r2, s_p, ok_p, 4), 1)))
+        plain_ms=cuda_ms(lambda: cg.iss_nms_plain(plan, r2, s_p, ok_p, 4), 1),
+        **stencil_bound("iss_nms", plan, nb_p.sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, s_p, ok_p, kp_k)), library_ms=None))
     log(f"# K4 iss_nms ok: {int(kp_p.sum())} keypoints")
 
     # the feature-scale surface, its normals and the keypoints' rows on it
@@ -367,7 +562,10 @@ def check_iss_kernels(sx, sv, radii):
         name="spfh_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
         max_abs_err=float((s_at - s_at_p).abs().max()), queries=int(slots.numel()),
         ms=cuda_ms(lambda: cg.spfh_at_cuda(pf, r2f, cen, slots), 5),
-        plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen, slots), 1)))
+        plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen, slots), 1),
+        **stencil_bound("spfh", pf, c_at[slots].sum(), tbytes(
+            pf.pts, pf.nrm, pf.cell_of, pf.cols, slots) + slots.numel() * 4 * 34, slots),
+        library_ms=None))
     log(f"# K5 subset ok: {slots.numel()} of {pf.n_valid} surface points, frac_off={f5:.2e}")
     # K6 at kp_rows against the full K6 gathered there (exact), and against
     # its plain version on the same SPFH input
@@ -386,16 +584,18 @@ def check_iss_kernels(sx, sv, radii):
         name="combine_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1608",
         max_abs_err=float((f_at - f_at_p).abs().max()), queries=int(srt.numel()),
         ms=cuda_ms(lambda: cg.combine_at_cuda(pf, r2f, s_full, srt), 5),
-        plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, s_full, srt), 1)))
+        plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, s_full, srt), 1),
+        **stencil_bound("combine", pf, k_at.sum(), tbytes(
+            pf.pts, pf.cell_of, pf.cols, s_full, srt, f_at, k_at), srt), library_ms=None))
     log(f"# K6 kp_rows ok: {int(real.sum())} rows, max_abs_err={records[-1]['max_abs_err']:.3g}")
     return records
 
 
 def check_shot_kernels(S):
     """K1's slot-list form on the classic masked route's working cloud (its
-    need slots around the ISS keypoints) and K7 at D = 352 on the SHOT
-    descriptors of the 10M pair's keypoints, each against its plain
-    version."""
+    need slots around the ISS keypoints) and K7 at D = 33 and D = 352 on the
+    FPFH and SHOT descriptors of the 10M pair's keypoints, each against its
+    plain version."""
     import math
 
     import torch
@@ -448,7 +648,10 @@ def check_shot_kernels(S):
         replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1241",
         max_abs_err=float(err.max()), queries=int(slots.numel()),
         ms=cuda_ms(lambda: cg.surface_at_cuda(pn, r2n, slots), 10),
-        plain_ms=cuda_ms(lambda: cg.surface_plain(pn, r2n, slots), 1)))
+        plain_ms=cuda_ms(lambda: cg.surface_plain(pn, r2n, slots), 1),
+        **stencil_bound("surface", pn, o_p[:, 7].sum(), tbytes(
+            pn.pts, pn.cell_of, pn.cols, pn.oid, slots) + slots.numel() * 4 * 10, slots),
+        library_ms=None))
     log(f"# K1 slot form ok: {slots.numel()} of {pn.n_valid} working points "
         f"({int(need.sum())} needed, {int(kp.sum())} keypoints), "
         f"max_abs_err={records[-1]['max_abs_err']:.3g}")
@@ -457,7 +660,7 @@ def check_shot_kernels(S):
     # surface, as the shipped regime computes them
     voxel_f = math.sqrt(math.pi * rf**2 / FEATURE_NR_POINTS)
     normal_f = math.sqrt(NORMAL_NR_POINTS / math.pi) * voxel_f
-    desc = []
+    desc, fpfh = [], []
     for x, v, r_i, vp in ((sx, sv, radii["iss_src"], S["vp_a"]),
                           (S["tx"], S["tv"], radii["iss_tgt"], S["vp_b"])):
         kp_i, _ = cg.iss_pass(cg.plan_grid(x, v, r_i), r_i)
@@ -467,6 +670,29 @@ def check_shot_kernels(S):
         frames, fb = gravity_lrf(normal[row_of[rows]])
         ones = torch.ones(rows.shape[0], dtype=torch.bool, device=x.device)
         desc.append(shot(x[rows], ones, sm, normal, smv, rf, frames=frames, fallback_mask=fb))
+        # and FPFH at the same keypoints, as the flagship route computes it
+        kp_sm = torch.zeros((sm.shape[0],), dtype=torch.bool, device=x.device)
+        kp_sm[row_of[rows]] = True
+        fpfh.append(cg.fpfh_pass(cg.set_normals(cg.plan_grid(sm, smv, rf), normal), rf,
+                                 kp=kp_sm, kp_rows=row_of[rows]))
+    (fs, _fvs), (ft33, fv33) = fpfh
+    d2k, ik = nn_l2.nn_l2_cuda(fs, ft33, fv33)
+    d2p, ip = nn_l2.nn_l2_plain(fs, ft33, fv33)
+    dk, dp = d2k.clamp_min(0).sqrt(), d2p.clamp_min(0).sqrt()
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5)
+    same = (dk - dp).abs() <= 1e-6
+    assert torch.equal(ik[same], ip[same]), "K7 (ISS FPFH) indices differ where distances agree"
+    records.append(dict(
+        name="nn_l2_iss", route="cuda", source=src + "nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((dk - dp).abs().max()), idx_mismatch=int((ik != ip).sum()),
+        shape=[int(fs.shape[0]), int(ft33.shape[0]), 33],
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fs, ft33, fv33), 10),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fs, ft33, fv33), 2),
+        **nn_bound(fs, ft33, fv33, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(fs, ft33, fv33), 2)))
+    log(f"# K7 D=33 ok: {fs.shape[0]} x {ft33.shape[0]} keypoint FPFH rows, "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}")
     (fq, _okq), (ft, okt) = desc
     d2k, ik = nn_l2.nn_l2_cuda(fq, ft, okt)
     d2p, ip = nn_l2.nn_l2_plain(fq, ft, okt)
@@ -482,9 +708,72 @@ def check_shot_kernels(S):
         max_abs_err=float((d2k - d2p).abs().max()), idx_mismatch=int(diff.sum()),
         shape=[int(fq.shape[0]), int(ft.shape[0]), int(fq.shape[1])],
         ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fq, ft, okt), 5),
-        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fq, ft, okt), 1)))
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fq, ft, okt), 2),
+        **nn_bound(fq, ft, okt, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(fq, ft, okt), 2)))
     log(f"# K7 D=352 ok: {fq.shape[0]} x {ft.shape[0]} SHOT rows, {int(diff.sum())} index "
         f"differences (near ties), max d2 err {records[-1]['max_abs_err']:.3g}")
+    return records
+
+
+def check_classic_fpfh(S):
+    """The K5 subset and K6 `kp_rows` forms at the classic masked route's
+    shapes (flagship._masked_route, FPFH): the source working cloud at the
+    feature radius, its masked normals, the keypoints' compacted rows; each
+    against its plain version."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import _compact_rows, _pad_quantum
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    src = "lidar_global_registration_tpu_torch/csrc/"
+    pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
+    radii = S["radii"]
+    sx, sv, r_iss, rf = S["sx"], S["sv"], radii["iss_src"], radii["feature"]
+    pn = cg.plan_grid(sx, sv, max(radii["normal_cell"], r_iss))
+    pf = cg.plan_grid(sx, sv, rf)
+    normal, kp, _dens, _sal = cg.surface_iss_masked(pn, pf, radii["normal_cell"], r_iss,
+                                                    S["vp_a"])
+    pf = cg.set_normals(pf, normal)
+    r2f = cg._f32_square(rf)
+    cen = cg.aabb_centre(pf)
+    n = int(kp.sum())
+    sj = _compact_rows(kp, n, _pad_quantum(n))
+    N = sx.shape[0]
+    slots = cg.stencil_slots(pf, torch.nonzero(kp[pf.order[:pf.n_valid]]).squeeze(1))
+    sp_k, c_k = cg.spfh_at_cuda(pf, r2f, cen, slots)
+    sp_p, c_p = cg.spfh_plain(pf, r2f, cen, slots)
+    assert torch.equal(c_k, c_p), "K5 subset (classic) counts differ"
+    f5 = frac_off(sp_k[slots], sp_p[slots])
+    assert f5 < 1e-3, f"K5 subset (classic): {f5:.2e} off by > 0.5"
+    records = [dict(
+        name="spfh_at_classic", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
+        max_abs_err=float((sp_k - sp_p).abs().max()), queries=int(slots.numel()),
+        ms=cuda_ms(lambda: cg.spfh_at_cuda(pf, r2f, cen, slots), 5),
+        plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen, slots), 1),
+        **stencil_bound("spfh", pf, c_p[slots].sum(), tbytes(
+            pf.pts, pf.nrm, pf.cell_of, pf.cols, slots) + slots.numel() * 4 * 34, slots),
+        library_ms=None)]
+    log(f"# K5 subset (classic) ok: {slots.numel()} of {pf.n_valid} working points, "
+        f"frac_off={f5:.2e}")
+    inv = cg.slot_of(pf)
+    srt = torch.where(sj < N, inv[sj.clamp_max(N - 1)], -1)
+    f_k, k_k = cg.combine_at_cuda(pf, r2f, sp_k, srt)
+    f_p, k_p = cg.combine_plain(pf, r2f, sp_k, srt)
+    assert torch.equal(k_k, k_p), "K6 kp_rows (classic) counts differ"
+    f6 = frac_off(f_k, f_p)
+    assert f6 < 1e-3, f"K6 kp_rows (classic): {f6:.2e} off by > 0.5"
+    records.append(dict(
+        name="combine_at_classic", route="cuda", source=src + "fpfh.cu",
+        replaces=pallas + "1608", max_abs_err=float((f_k - f_p).abs().max()),
+        queries=int(srt.numel()),
+        ms=cuda_ms(lambda: cg.combine_at_cuda(pf, r2f, sp_k, srt), 5),
+        plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, sp_k, srt), 1),
+        **stencil_bound("combine", pf, k_p.sum(), tbytes(
+            pf.pts, pf.cell_of, pf.cols, sp_k, srt, f_k, k_k), srt),
+        library_ms=None))
+    log(f"# K6 kp_rows (classic) ok: {n} rows of {srt.numel()}, "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}")
     return records
 
 
@@ -593,7 +882,7 @@ def iss_phase(dev):
         f"{time.perf_counter() - t0:.2f} s; raw {S['raw']}")
     log(f"# pre-downsample: {N_ISS} -> {sx.shape[0]} rows/side ({int(sv.sum())}/{int(tv.sum())} "
         f"valid, voxel {S['vox'][0]:.4f}/{S['vox'][1]:.4f}); radii {radii}")
-    records = check_iss_kernels(sx, sv, radii) + check_shot_kernels(S)
+    records = check_iss_kernels(sx, sv, radii) + check_shot_kernels(S) + check_classic_fpfh(S)
 
     iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
     launches = {}
@@ -687,6 +976,7 @@ def main() -> int:
     log(f"# radii ({time.perf_counter() - t0:.2f} s set-up): {radii}")
 
     records = check_kernels(dev, a, b, radii)
+    check_nn_edges(dev)
 
     counters = (cellgrid.surface_cuda, cellgrid.spfh_cuda, cellgrid.combine_cuda,
                 nn_l2.nn_l2_cuda)
@@ -733,7 +1023,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lradii = derive_radii(torch.from_numpy(la).to(dev), torch.from_numpy(lb).to(dev))
     log(f"# large radii ({time.perf_counter() - t0:.2f} s set-up): {lradii}")
+    large_records = check_large(dev, la, lb, lradii)
     la_dev = torch.from_numpy(la).to(dev)
+    for c in counters:
+        c.launches = 0
     register(dev, la_dev, lb, lvp_a, lvp_b, lradii, SEED)  # warm-up
     times = {}
     torch.cuda.reset_peak_memory_stats(dev)
@@ -748,6 +1041,13 @@ def main() -> int:
         f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
     assert finite, "large run: non-finite pose"
+    large = {"combine_262k": cellgrid.combine_cuda.launches,
+             "nn_l2_262k": nn_l2.nn_l2_cuda.launches}
+    log(f"# launches in the large runs: {large}")
+    assert all(n > 0 for n in large.values()), "a kernel of the large path was never launched"
+    for rec in large_records:
+        rec["launches"] = large[rec["name"]]
+    records += large_records
 
     # the ISS routes on the 10M pair, then small pairs via both paths
     iss_records, iss_launches = iss_phase(dev)
@@ -757,7 +1057,10 @@ def main() -> int:
             for route, got in iss_launches.items():
                 rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
     own = {"surface_at": ("masked_fpfh", "surface_at_cuda"),
-           "nn_l2_d352": ("shot", "nn_l2_cuda")}
+           "nn_l2_d352": ("shot", "nn_l2_cuda"),
+           "nn_l2_iss": ("fpfh", "nn_l2_cuda"),
+           "spfh_at_classic": ("masked_fpfh", "spfh_at_cuda"),
+           "combine_at_classic": ("masked_fpfh", "combine_at_cuda")}
     for rec in iss_records:
         route, key = own.get(rec["name"], ("fpfh", rec["name"] + "_cuda"))
         rec["launches"] = iss_launches[route][key]

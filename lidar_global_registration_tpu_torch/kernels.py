@@ -48,10 +48,14 @@ SIGNATURES = {
     "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
     # pts, nrm, cell_of, cols, slots (or 0), m, r2, gx, gy, gz, spfh, cnt, stream
     "lgr_spfh": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
-    # pts, cell_of, cols, spfh, slots (or 0), m, r2, feat, kcnt, stream
-    "lgr_combine": (_P, _P, _P, _P, _P, _I, _F, _P, _P, _P),
-    # query, train, qn, tn, nq, nt, d, best_d2, best_i, stream
-    "lgr_nn_l2": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # pts, cell_of, cols, spfh, slots (or 0), rows (or 0), m, r2, per_thread,
+    # feat, kcnt, stream
+    "lgr_combine": (_P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P),
+    # qt, tt, qn, tn, nq, nq_pad, nt_pad, d, tiles_per, splits, part_d2,
+    # part_i, best_d2, best_i, stream
+    "lgr_nn_l2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # d, blocks_per_sm (int*)
+    "lgr_nn_l2_blocks_per_sm": (_I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -806,7 +806,19 @@ def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor, slots=None):
     return feat, kcnt
 
 
+def combine_order(slots: torch.Tensor):
+    """The K6 launch order of a slot list: (slots i32[M] ascending, i.e. by
+    cell, padding first; rows i32[M], the output row of each).  A stable
+    sort, so repeats keep their order; neighbouring warps then walk
+    neighbouring cells and share SPFH rows in cache."""
+    srt, rows = torch.sort(slots, stable=True)
+    return srt.to(torch.int32).contiguous(), rows.to(torch.int32).contiguous()
+
+
 def _launch_combine(plan: GridPlan, r2: float, spfh: torch.Tensor, slots, m: int):
+    """K6 over every sorted query (slots None: one thread per query, the
+    threads of a warp share their cells' reads) or at a slot list (one warp
+    per query, in cell order)."""
     dev = plan.pts.device
     feat = torch.empty((m, DIM), dtype=torch.float32, device=dev)
     kcnt = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -814,12 +826,15 @@ def _launch_combine(plan: GridPlan, r2: float, spfh: torch.Tensor, slots, m: int
         return feat, kcnt
     _check_plan(plan)
     kernels.check(spfh, torch.float32, (plan.n_valid, DIM), "spfh")
+    srt = rows = None
     if slots is not None:
         kernels.check(slots, torch.int32, (m,), "slots")
+        srt, rows = combine_order(slots)
     kernels.launch(
         "lgr_combine", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-        plan.cols.data_ptr(), spfh.data_ptr(), 0 if slots is None else slots.data_ptr(),
-        m, r2, feat.data_ptr(), kcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        plan.cols.data_ptr(), spfh.data_ptr(), 0 if srt is None else srt.data_ptr(),
+        0 if rows is None else rows.data_ptr(), m, r2, int(slots is None),
+        feat.data_ptr(), kcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     return feat, kcnt
 

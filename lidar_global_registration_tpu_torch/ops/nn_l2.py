@@ -2,10 +2,13 @@
 
 d2 = |q|^2 + |t|^2 - 2 q.t; the running argmin keeps the lowest index among
 equal minima, and an invalid train row carries |t|^2 = BIG so it never
-wins.  The kernel (csrc/nn_l2.cu) keeps the distance tile on chip; the plain
-version materialises it one query chunk at a time.
+wins.  The kernel (csrc/nn_l2.cu) keeps the distance tile on chip and reads
+dimension-major, zero-padded copies that its wrapper makes; the plain
+version materialises the distances one query chunk at a time.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,6 +39,56 @@ def nn_l2_plain(query, train, tvalid, tile: int = 4096):
     return d2_best, i_best
 
 
+TILE = 128  # queries and train rows per block tile of csrc/nn_l2.cu
+CHUNK = 16  # dimensions per chunk of csrc/nn_l2.cu
+MAX_SPLITS = 16  # train ranges of a split at most
+
+
+def _dim_major(x, n_pad: int, d_pad: int):
+    """x f32[N, D] -> its zero-padded transpose f32[d_pad, n_pad]."""
+    out = x.new_zeros((d_pad, n_pad))
+    out[:x.shape[1], :x.shape[0]] = x.T
+    return out
+
+
+def _padded(v, n_pad: int, fill: float):
+    out = torch.full((n_pad,), fill, dtype=torch.float32, device=v.device)
+    out[:v.shape[0]] = v
+    return out
+
+
+def split_plan(nq: int, nt: int, slots: int) -> tuple[int, int]:
+    """(ranges S, train tiles per range) of the K7 grid: ceil(nq / 128)
+    query tiles times S train ranges, `slots` blocks resident on the card at
+    once.  S minimises the waves a range's work takes, ceil(blocks * S /
+    slots) / S; a larger S must save more than 5 %, so a grid that already
+    fills the card some twice or more stays whole."""
+    q_tiles = -(-max(nq, 1) // TILE)
+    t_tiles = max(-(-nt // TILE), 1)
+    best, best_cost = 1, float("inf")
+    for s in range(1, min(MAX_SPLITS, t_tiles) + 1):
+        cost = -(-q_tiles * s // slots) / s
+        if cost < 0.95 * best_cost:
+            best, best_cost = s, cost
+    per = -(-t_tiles // best)
+    return -(-t_tiles // per), per
+
+
+_RESIDENT: dict = {}
+
+
+def _resident_blocks(device, d: int) -> int:
+    """SMs x resident blocks per SM of the K7 kernel of dimension d on
+    `device` (asked once per device and kernel)."""
+    key = (device, d == 33)
+    if key not in _RESIDENT:
+        per_sm = ctypes.c_int(0)
+        kernels.launch("lgr_nn_l2_blocks_per_sm", d, ctypes.addressof(per_sm))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _RESIDENT[key] = sms * max(per_sm.value, 1)
+    return _RESIDENT[key]
+
+
 def nn_l2_cuda(query, train, tvalid):
     """K7 · csrc/nn_l2.cu: same contract as nn_l2_plain (D <= 512)."""
     Nq, D = query.shape
@@ -49,10 +102,22 @@ def nn_l2_cuda(query, train, tvalid):
     idx = torch.empty((Nq,), dtype=torch.int32, device=query.device)
     if Nq == 0:
         return d2, idx
+    nq_pad = -(-Nq // TILE) * TILE
+    nt_pad = max(-(-Nt // TILE), 1) * TILE
+    d_pad = max(-(-D // CHUNK), 1) * CHUNK
+    splits, per = split_plan(Nq, Nt, _resident_blocks(query.device, D))
+    part_d2 = part_i = d2
+    if splits > 1:
+        part_d2 = torch.empty((splits, Nq), dtype=torch.float32, device=query.device)
+        part_i = torch.empty((splits, Nq), dtype=torch.int32, device=query.device)
+    # held in names until the launch: a temporary freed at once would hand
+    # its memory to the next allocation before the kernel reads it
+    qt, tt = _dim_major(query, nq_pad, d_pad), _dim_major(train, nt_pad, d_pad)
+    qn_p, tn_p = _padded(qn, nq_pad, 0.0), _padded(tn, nt_pad, BIG)
     kernels.launch(
-        "lgr_nn_l2", query.data_ptr(), train.data_ptr(), qn.data_ptr(),
-        tn.data_ptr(), Nq, Nt, D, d2.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(query.device).cuda_stream,
+        "lgr_nn_l2", qt.data_ptr(), tt.data_ptr(), qn_p.data_ptr(), tn_p.data_ptr(), Nq,
+        nq_pad, nt_pad, D, per, splits, part_d2.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(query.device).cuda_stream,
     )
     nn_l2_cuda.launches += 1
     return d2, idx

@@ -178,3 +178,51 @@ def test_masked_fpfh_matches_full_pass_and_jax(rng):
     # as test_fpfh_matches_jax_fpfh_pass: only pairs on a bin edge may flip
     assert np.mean(diff > 0.5) < 1e-3
     assert np.median(diff) < 1e-3
+
+
+def test_kp_rows_in_keypoint_order_match_full_pass_and_jax(rng):
+    """K6 at kp_rows as a keypoint matcher hands them over: shuffled, with
+    repeats and with padding rows (>= N) in between.  Each row equals the
+    full pass at its point, padding rows are 0, and JAX fpfh_pass(kp=,
+    kp_rows=) agrees."""
+    xyz, valid = _bump_cloud(1536, 64, rng)
+    N = xyz.shape[0]
+    radius = 0.9
+    nplan = cg.plan_grid(torch.from_numpy(xyz), torch.from_numpy(valid), 0.5)
+    normal = cg.surface_pass(nplan, 0.5, torch.from_numpy(VIEWPOINT))[0]
+    plan = cg.set_normals(cg.plan_grid(torch.from_numpy(xyz), torch.from_numpy(valid), radius),
+                          normal)
+    kp = (rng.random(N) < 0.04) & valid
+    rows = np.nonzero(kp)[0]
+    kp_rows = np.concatenate([rows, rows[::3], np.full(7, N), np.full(4, N + 5)])
+    kp_rows = kp_rows[rng.permutation(kp_rows.size)].astype(np.int64)
+    full, full_v = (v.numpy() for v in cg.fpfh_pass(plan, radius))
+    feat, fv = (v.numpy() for v in cg.fpfh_pass(plan, radius, kp=torch.from_numpy(kp),
+                                                  kp_rows=torch.from_numpy(kp_rows)))
+    r = np.minimum(kp_rows, N - 1)
+    np.testing.assert_array_equal(fv, full_v[r] & (kp_rows < N))
+    np.testing.assert_array_equal(feat, np.where(fv[:, None], full[r], 0.0))
+    assert not feat[kp_rows >= N].any()
+
+    jxyz = jnp.asarray(xyz)
+    jplan = jcg.set_normals(jcg.plan_grid(jxyz, jnp.zeros_like(jxyz), jnp.asarray(valid), radius,
+                                          exact=True), jnp.asarray(normal.numpy()))
+    jfeat, jfv = (np.asarray(v) for v in jcg.fpfh_pass(
+        jplan, radius, kp=jnp.asarray(kp), kp_rows=jnp.asarray(kp_rows.astype(np.int32)),
+        interpret=True))
+    np.testing.assert_array_equal(fv, jfv)
+    diff = np.abs(feat[fv] - jfeat[fv])
+    # as test_fpfh_matches_jax_fpfh_pass: only pairs on a bin edge may flip
+    assert np.mean(diff > 0.5) < 1e-3
+    assert np.median(diff) < 1e-3
+
+
+def test_combine_order_sorts_slots_stably_with_a_row_map():
+    """K6's launch order of a slot list: ascending slots (padding first),
+    repeats in their order, and the output row of each."""
+    slots = torch.tensor([7, -1, 3, 7, 0, -1, 3, 9], dtype=torch.int32)
+    srt, rows = cg.combine_order(slots)
+    assert srt.dtype == rows.dtype == torch.int32
+    assert srt.tolist() == [-1, -1, 0, 3, 3, 7, 7, 9]
+    assert rows.tolist() == [1, 5, 4, 2, 6, 0, 3, 7]
+    assert torch.equal(slots[rows.long()], srt)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from lidar_global_registration_tpu.ops.pallas.topk_l2 import nn_l2_pallas
+from lidar_global_registration_tpu_torch.ops import nn_l2 as k7
 from lidar_global_registration_tpu_torch.ops.matchers import match_bf
 from lidar_global_registration_tpu_torch.ops.nn_l2 import nn_l2
 
@@ -50,6 +51,73 @@ def test_nn_ties_go_to_the_lowest_index(rng):
     assert ti.tolist() == [20, 20, 20, 5]
     assert ti.tolist() == ji.tolist()
     assert tm.all()
+
+
+@pytest.mark.parametrize("D", [33, 352])
+def test_nn_ties_far_apart_and_at_the_ends(rng, D):
+    """Exact copies of a row at both ends of the train set, far apart, and
+    on both sides of each cut of K7's split train range: the lowest index
+    wins, in JAX's Pallas kernel, in the plain version and in each split."""
+    nt = 1000
+    S, per = k7.split_plan(3, nt, 132)
+    assert S > 1
+    cuts = [k * per * k7.TILE for k in range(1, S)]
+    t = rng.normal(size=(nt, D)).astype(np.float32)
+    pairs = [(0, nt - 1), (3, 997), (1, 500)] + [(c - 1, c) for c in cuts]
+    q = rng.normal(size=(len(pairs) + 2, D)).astype(np.float32)
+    for k, (lo, hi) in enumerate(pairs):
+        t[hi] = t[lo]
+        q[k] = t[lo]
+    (ti, _td, tm), (ji, _jd, jm) = _both(q, t, np.ones(len(q), bool), np.ones(nt, bool))
+    want = [lo for lo, _ in pairs]
+    assert ti[:len(pairs)].tolist() == want
+    assert ji[:len(pairs)].tolist() == want
+    np.testing.assert_array_equal(ti, ji)
+    assert tm.all() and jm.all()
+    # the split: each range's argmin, merged lowest range first with a strict <
+    d2, idx = _split_merge(torch.from_numpy(q), torch.from_numpy(t), torch.ones(nt, dtype=bool),
+                           S, per)
+    full_d2, full_idx = k7.nn_l2_plain(torch.from_numpy(q), torch.from_numpy(t),
+                                       torch.ones(nt, dtype=bool))
+    assert idx[:len(pairs)].tolist() == want
+    assert torch.equal(idx, full_idx) and torch.equal(d2, full_d2)
+
+
+def _split_merge(q, t, tv, S, per):
+    """K7's split rule on the plain version: S train ranges of `per` tiles,
+    each a lowest-index argmin, merged in range order with a strict <."""
+    best_d = torch.full((q.shape[0],), k7.BIG)
+    best_i = torch.zeros((q.shape[0],), dtype=torch.int32)
+    for s in range(S):
+        lo, hi = s * per * k7.TILE, min((s + 1) * per * k7.TILE, t.shape[0])
+        d, i = k7.nn_l2_plain(q, t[lo:hi], tv[lo:hi])
+        take = d < best_d
+        best_d = torch.where(take, d, best_d)
+        best_i = torch.where(take, i + lo, best_i)
+    return best_d, best_i
+
+
+@pytest.mark.parametrize("nq, nt, slots, want", [
+    (22203, 22623, 264, (3, 59)),  # SHOT keypoints: 174 query tiles fill 264 slots once
+    (65536, 65536, 264, (1, 512)),  # 512 query tiles: ~2 waves already
+    (262144, 262144, 264, (1, 2048)),
+    (129, 4099, 264, (11, 3)),  # 33 train tiles: at most 16 ranges, none empty
+    (5, 0, 264, (1, 1)),  # no train row: one padded tile
+])
+def test_split_plan(nq, nt, slots, want):
+    S, per = k7.split_plan(nq, nt, slots)
+    assert (S, per) == want
+    tiles = max(-(-nt // k7.TILE), 1)
+    assert (S - 1) * per < tiles <= S * per  # every tile in one range, no range empty
+
+
+def test_dim_major_copies_pad_with_zeros(rng):
+    x = torch.from_numpy(rng.normal(size=(5, 33)).astype(np.float32))
+    out = k7._dim_major(x, 128, 48)
+    assert out.shape == (48, 128)
+    assert torch.equal(out[:33, :5], x.T) and not bool(out[33:].any()) and not bool(out[:, 5:].any())
+    tn = k7._padded(torch.arange(3.0), 128, k7.BIG)
+    assert tn[:3].tolist() == [0.0, 1.0, 2.0] and bool((tn[3:] == np.float32(k7.BIG)).all())
 
 
 def test_nn_invalid_train_rows_never_win(rng):
