@@ -8,21 +8,26 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
 
   keypoint-any (bench.py:177-190): K1, K5, K6, K7 checked against their
       plain PyTorch versions at 65,536 points (K6 also on shuffled,
-      repeated and padding slots); K7 at the edges of its tiling (D in {1,
-      33, 352, 512}, nq in {1, 127, 129, 22203}, duplicate rows across
-      every split of the train range, no valid row); the bench's
-      65,536-point pair, one warm-up and three timed repeats; a 4,096-point
-      pair through the kernels and the plain versions; K6 and K7 checked at
-      262,144 points, then one 262,144-point pair.
+      repeated and padding slots); K5 and K1 at the edges of their work
+      shapes (dense cells of over 32 and 128 queries, stencil columns of 1
+      to 9 points, distance ties, zero normals, slot lists of whole
+      stencils, partial cells, single slots and none, a one-point plan);
+      K7 at the edges of its tiling (D in {1, 33, 352, 512}, nq in {1,
+      127, 129, 22203}, duplicate rows across every split of the train
+      range, no valid row); the bench's 65,536-point pair, one warm-up and
+      three timed repeats; a 4,096-point pair through the kernels and the
+      plain versions; K5, K6 and K7 checked at 262,144 points, then one
+      262,144-point pair.
   ISS (the bench's flagship row, bench.py:159-176, 194-256, 420-438):
       the box + mound pair at 10,485,760 points per side, sampled on the
       card; radii derived on the raw pair and again after the
       loader-equivalent pre-downsample, both outside the timed region;
-      K2, K3, K4 and the K5 / K6 subset forms checked at the shapes of the
-      pre-downsampled working cloud, K1's slot-list form and the K5 / K6
-      subset forms at the classic masked route's shapes there, K7 at D =
-      33 and D = 352 on the pair's FPFH and SHOT keypoint descriptors.  Then on that pair, pre-downsample +
-      register_pair_staged:
+      K2, K3, K4, K1 on the voxel surface and the K5 / K6 subset forms
+      checked at the shapes of the pre-downsampled working cloud, K1's
+      slot-list form and the K5 / K6 subset forms at the classic masked
+      route's shapes there (with that route's fpfh stage split), K7 at D =
+      33 and D = 352 on the pair's FPFH and SHOT keypoint descriptors.
+      Then on that pair, pre-downsample + register_pair_staged:
         FPFH feature-scale route (the flagship row): warm-up + 3 repeats;
         the shipped SHOT regime (descriptor shot, lrf gravity; bench.py with
           LGR_BENCH_DESC=shot): warm-up + 3 repeats;
@@ -39,13 +44,15 @@ to 0 just before its runs and must all have risen after them.
 The next-to-last line of standard output is a JSON object with one entry
 per kernel and shape: its launches on the main path, its error against the
 plain version, its time, the plain version's, the bound (bound_ms,
-bound_by) and, for K7, the library yardstick (library_ms); the last is
+bound_by), the library yardstick (library_ms; K7's, null elsewhere) and
+for K5 the static SASS count of its pair body; the last is
 {"ok": true, "device": {...}}.  Any failure exits
 non-zero without those lines.  Needs one CUDA device; JAX is never imported.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -109,7 +116,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def frac_off(a, b, thr=0.5) -> float:
-    return float(((a - b).abs() > thr).float().mean())
+    """Share of the entries that differ by more than thr (0 for none)."""
+    return float(((a - b).abs() > thr).float().mean()) if a.numel() else 0.0
 
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -165,6 +173,31 @@ def library_nn(q, t, tvalid, tile: int = 4096):
             for s in range(0, q.shape[0], tile)]
 
 
+def surface_err(out_k, d_k, id_k, out_p, d_p, id_p, label: str) -> float:
+    """K1's full pass against its plain version: counts and nearest ids
+    exact, well-defined normals, curvature and distances to float32
+    summation order; returns the largest absolute difference (normals up to
+    sign)."""
+    import torch
+
+    sign = torch.where((out_k[:, :3] * out_p[:, :3]).sum(1, keepdim=True) < 0, -1.0, 1.0)
+    err = torch.cat([(out_k[:, :3] * sign - out_p[:, :3]).abs().flatten(),
+                     (out_k[:, 3:7] - out_p[:, 3:7]).abs().flatten(), (d_k - d_p).abs()])
+    dots = (out_k[:, :3] * out_p[:, :3]).sum(1).abs()
+    assert torch.equal(out_k[:, 7], out_p[:, 7]), f"{label} neighbour counts differ"
+    assert torch.equal(id_k, id_p), f"{label} nearest-neighbour ids differ"
+    # normals up to sign: 1e-5 where the normal is well defined (eigen gap
+    # l1 - l0 >= 1e-2 l2), as in tests/test_torch_cellgrid.py
+    ok = out_p[:, 7] >= 3
+    well = ok & (out_p[:, 5] - out_p[:, 4] >= 1e-2 * out_p[:, 6])
+    assert bool((dots[well] > 1 - 1e-5).all()), f"{label} normals: {float(dots[well].min())}"
+    # curvature: the sums run in another order; l0 of a flat patch is a
+    # float32 cancellation residue, so small values carry ~1e-7 absolute noise
+    torch.testing.assert_close(out_k[:, 3], out_p[:, 3], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=0.0)
+    return float(err.max())
+
+
 def check_kernels(dev, a, b, radii):
     """Each kernel against its plain version on the card, at the main path's
     shapes; returns the per-kernel records (launches filled in later)."""
@@ -184,26 +217,13 @@ def check_kernels(dev, a, b, radii):
     # K1 surface
     out_k, d_k, id_k = cg.surface_cuda(plan_n, r2n)
     out_p, d_p, id_p = cg.surface_plain(plan_n, r2n)
-    sign = torch.where((out_k[:, :3] * out_p[:, :3]).sum(1, keepdim=True) < 0, -1.0, 1.0)
-    err = torch.cat([(out_k[:, :3] * sign - out_p[:, :3]).abs().flatten(),
-                     (out_k[:, 3:7] - out_p[:, 3:7]).abs().flatten(), (d_k - d_p).abs()])
     dots = (out_k[:, :3] * out_p[:, :3]).sum(1).abs()
-    assert torch.equal(out_k[:, 7], out_p[:, 7]), "K1 neighbour counts differ"
-    assert torch.equal(id_k, id_p), "K1 nearest-neighbour ids differ"
-    # normals up to sign: 1e-5 where the normal is well defined (eigen gap
-    # l1 - l0 >= 1e-2 l2), as in tests/test_torch_cellgrid.py
     ok = out_p[:, 7] >= 3
-    well = ok & (out_p[:, 5] - out_p[:, 4] >= 1e-2 * out_p[:, 6])
-    assert bool((dots[well] > 1 - 1e-5).all()), f"K1 normals: min |dot| {float(dots[well].min())}"
     assert bool((dots[ok] > 0.99).all()), f"K1 normals: min |dot| {float(dots[ok].min())}"
-    # curvature: the sums run in another order; l0 of a flat patch is a
-    # float32 cancellation residue, so small values carry ~1e-7 absolute noise
-    torch.testing.assert_close(out_k[:, 3], out_p[:, 3], rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=0.0)
     records.append(dict(
         name="surface", route="cuda", source="lidar_global_registration_tpu_torch/csrc/surface.cu",
         replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1241",
-        max_abs_err=float(err.max()),
+        max_abs_err=surface_err(out_k, d_k, id_k, out_p, d_p, id_p, "K1"),
         ms=cuda_ms(lambda: cg.surface_cuda(plan_n, r2n), 10),
         plain_ms=cuda_ms(lambda: cg.surface_plain(plan_n, r2n), 2),
         **stencil_bound("surface", plan_n, out_p[:, 7].sum(), tbytes(
@@ -291,6 +311,109 @@ def check_kernels(dev, a, b, radii):
     return records
 
 
+def check_cell_edges(dev):
+    """K5 and K1 where their work shapes have edges, each against its plain
+    version (counts and ids exact, K5's bins by frac_off) and against its
+    full pass at the same slots (bit for bit): two dense clusters of points
+    all within r of each other (cells of more than 32 and more than 128
+    queries; K5's queue fills on every step), groups of 1 to 9 points alone
+    in their cells (stencil columns of length 1 to 9: every tail of K1's
+    walk, 4 rows at a time, and of K5's, 8 at a time, and one full group
+    before a tail), an 8 x 8 grid of equal spacings (distance ties), zero
+    normals on a tenth of the points, terrain; slot lists of whole
+    stencils, partial cells, single slots, one slot and none; a plan of one
+    point."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    rng = np.random.default_rng(17)
+    r = 0.3
+    r2 = cg._f32_square(r)
+    parts = [rng.normal(size=(300, 3)) * 0.02 + [3.0, 3.0, 5.0],
+             rng.normal(size=(60, 3)) * 0.02 + [6.0, 3.0, 5.0]]
+    parts += [rng.normal(size=(k, 3)) * 0.005 + [20.0 + 1.0 * k, 0.0, 0.0] for k in range(1, 10)]
+    g = np.stack(np.meshgrid(np.arange(8), np.arange(8), [0.0]), -1).reshape(-1, 3)
+    parts.append(g * 0.25 + [8.0, 8.0, 0.0])
+    xy = rng.uniform(0.0, 12.0, size=(4000, 2))
+    parts.append(np.column_stack([xy, 0.3 * np.sin(xy[:, 0]) * np.cos(0.7 * xy[:, 1])]))
+    X = torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(dev)
+    N = X.shape[0]
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    nrm = torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)).to(dev)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    nrm[torch.from_numpy(rng.random(N) < 0.1).to(dev)] = 0.0
+    plan = cg.set_normals(cg.plan_grid(X, ones, r), nrm)
+    n = plan.n_valid
+    per_cell = torch.bincount(plan.cell_of.long())
+    assert int(per_cell.max()) > 128 and bool(((per_cell > 32) & (per_cell <= 128)).any())
+    col_len = set((plan.cols[:, :, 1] - plan.cols[:, :, 0]).flatten().tolist())
+    assert set(range(1, 10)) <= col_len, f"K1 column lengths {sorted(col_len)[:12]}"
+    pick = torch.from_numpy(rng.choice(n, 60, replace=False)).to(dev)
+    slot_lists = {
+        "stencil": cg.stencil_slots(plan, pick),
+        "partial cells": torch.nonzero(torch.from_numpy(rng.random(n) < 0.3).to(dev)).squeeze(1),
+        "single slots": torch.sort(pick[:9]).values,
+        "empty": torch.zeros((0,), dtype=torch.int64, device=dev),
+    }
+    slot_lists["one slot"] = slot_lists["single slots"][:1]
+    cen = cg.aabb_centre(plan)
+    s_full, c_full = cg.spfh_cuda(plan, r2, cen)
+    s_p, c_p = cg.spfh_plain(plan, r2, cen)
+    assert torch.equal(c_full, c_p) and frac_off(s_full, s_p) < 1e-3, "K5 edges: full pass"
+    k1_full = cg.surface_cuda(plan, r2)
+    k1_p = cg.surface_plain(plan, r2)
+    assert torch.equal(k1_full[0][:, 7], k1_p[0][:, 7]) and torch.equal(k1_full[2], k1_p[2])
+    torch.testing.assert_close(k1_full[1], k1_p[1], rtol=1e-4, atol=0.0)
+    for name, sl in slot_lists.items():
+        rest = torch.ones(n, dtype=torch.bool, device=dev)
+        rest[sl] = False
+        s_at, c_at = cg.spfh_at_cuda(plan, r2, cen, sl)
+        assert torch.equal(s_at[sl], s_full[sl]) and torch.equal(c_at[sl], c_full[sl]), name
+        assert not bool(s_at[rest].any()) and not bool(c_at[rest].any()), name
+        s_atp, c_atp = cg.spfh_plain(plan, r2, cen, sl)
+        assert torch.equal(c_at, c_atp) and frac_off(s_at[sl], s_atp[sl]) < 1e-3, name
+        out, d, ids = cg.surface_at_cuda(plan, r2, sl)
+        assert all(torch.equal(a[sl], b[sl]) for a, b in zip((out, d, ids), k1_full)), name
+        assert not bool(out[rest].any()) and bool((ids[rest] == -1).all()), name
+        o_p, _d_p, id_p = cg.surface_plain(plan, r2, sl)
+        assert torch.equal(out[:, 7], o_p[:, 7]) and torch.equal(ids, id_p), name
+    one = cg.set_normals(cg.plan_grid(X[:1], ones[:1], r), nrm[:1])
+    c1 = cg.aabb_centre(one)
+    for got, want in ((cg.surface_cuda(one, r2), cg.surface_plain(one, r2)),
+                      (cg.spfh_cuda(one, r2, c1), cg.spfh_plain(one, r2, c1))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), "one-point plan"
+    log(f"# K5/K1 edges ok: {n} points, cells of up to {int(per_cell.max())} queries, "
+        f"{int(c_full.sum())} pairs, slot lists {[int(s.numel()) for s in slot_lists.values()]}, "
+        f"one-point plan")
+
+
+def pair_body_sass() -> int:
+    """Static SASS instructions of K5's pair body (`pair_bins` in
+    csrc/fpfh.cu), compiled alone into a probe kernel with the library's
+    flags; the count includes the probe's 3 loads, its store and exit."""
+    from lidar_global_registration_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    probe = kernels.BUILD_DIR / "pair_body_probe.cu"
+    probe.write_text(
+        f'#include "{kernels.CSRC / "fpfh.cu"}"\n'
+        'extern "C" __global__ void pair_body_probe(const float4* in, int* out) {\n'
+        '  const float4 d = in[0], qn = in[1], cn = in[2];\n'
+        '  int b1 = 0, b2 = 0, b3 = 0;\n'
+        '  const bool ok = pair_bins(d.x, d.y, d.z, d.w, qn, qn.w, cn, b1, b2, b3);\n'
+        '  out[0] = ok ? b1 + 11 * b2 + 121 * b3 : -1;\n'
+        '}\n')
+    cubin = probe.with_suffix(".cubin")
+    subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-cubin", "-o", str(cubin), str(probe)],
+                   check=True, capture_output=True, timeout=300)
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    body = sass.split("Function : pair_body_probe")[1].split("Function :")[0]
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", body)
+    return sum(1 for op in ops if not op.strip().startswith("NOP"))
+
+
 def check_nn_edges(dev):
     """K7 against its plain version where its tiling has edges: D in {1, 33,
     352, 512} and nq in {1, 127, 129, 22203} against nt = 5003 train rows
@@ -340,8 +463,8 @@ def check_nn_edges(dev):
 
 
 def check_large(dev, a, b, radii):
-    """K6's full form and K7 at 262,144 points, the large pair's shapes,
-    each against its plain version."""
+    """K5's and K6's full forms and K7 at 262,144 points, the large pair's
+    shapes, each against its plain version."""
     import torch
 
     from lidar_global_registration_tpu_torch.ops import cellgrid as cg
@@ -357,9 +480,24 @@ def check_large(dev, a, b, radii):
                             cg.surface_pass(cg.plan_grid(X, ones, rn), rn)[0])
         feats.append(cg.fpfh_pass(pf, rf))
         if len(feats) == 1:
-            sp, _ = cg.spfh_cuda(pf, r2f, cg.aabb_centre(pf))
-            f_k, k_k = cg.combine_cuda(pf, r2f, sp)
-            f_p, k_p = cg.combine_plain(pf, r2f, sp)
+            cen = cg.aabb_centre(pf)
+            sp_k, c_k = cg.spfh_cuda(pf, r2f, cen)
+            sp_p, c_p = cg.spfh_plain(pf, r2f, cen)
+            f5 = frac_off(sp_k, sp_p)
+            assert torch.equal(c_k, c_p) and f5 < 1e-3, f"K5 262k: {f5:.2e} off by > 0.5"
+            rec5 = dict(
+                name="spfh_262k", route="cuda",
+                source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
+                replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1554",
+                max_abs_err=float((sp_k - sp_p).abs().max()), queries=int(pf.n_valid),
+                ms=cuda_ms(lambda: cg.spfh_cuda(pf, r2f, cen), 5),
+                plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen), 1),
+                **stencil_bound("spfh", pf, c_p.sum(), tbytes(
+                    pf.pts, pf.nrm, pf.cell_of, pf.cols, sp_k, c_k)),
+                library_ms=None)
+            log(f"# K5 at {pf.n_valid} points ok: {rec5['ms']:.3f} ms, frac_off={f5:.2e}")
+            f_k, k_k = cg.combine_cuda(pf, r2f, sp_k)
+            f_p, k_p = cg.combine_plain(pf, r2f, sp_k)
             assert torch.equal(k_k, k_p), "K6 (262k) neighbour counts differ"
             f6 = frac_off(f_k, f_p)
             assert f6 < 1e-3 and float((f_k - f_p).abs().median()) < 1e-3, f"K6 262k: {f6:.2e}"
@@ -368,10 +506,10 @@ def check_large(dev, a, b, radii):
                 source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
                 replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1608",
                 max_abs_err=float((f_k - f_p).abs().max()), queries=int(pf.n_valid),
-                ms=cuda_ms(lambda: cg.combine_cuda(pf, r2f, sp), 5),
-                plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, sp), 1),
+                ms=cuda_ms(lambda: cg.combine_cuda(pf, r2f, sp_k), 5),
+                plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, sp_k), 1),
                 **stencil_bound("combine", pf, k_p.sum(), tbytes(
-                    pf.pts, pf.cell_of, pf.cols, sp, f_k, k_k)),
+                    pf.pts, pf.cell_of, pf.cols, sp_k, f_k, k_k)),
                 library_ms=None)
             log(f"# K6 at {pf.n_valid} points ok: max_abs_err={rec6['max_abs_err']:.3g}")
     (fs, _fvs), (ft, fvt) = feats
@@ -391,7 +529,7 @@ def check_large(dev, a, b, radii):
         library_ms=cuda_ms(lambda: library_nn(fs, ft, fvt), 1))
     log(f"# K7 at {fs.shape[0]}^2 ok: {rec7['ms']:.2f} ms, plain {rec7['plain_ms']:.2f}, "
         f"library {rec7['library_ms']:.2f}, idx_mismatch={int((ik != ip).sum())}")
-    return [rec6, rec7]
+    return [rec5, rec6, rec7]
 
 
 def register(dev, a, b, vp_a, vp_b, radii, seed, times=None):
@@ -537,7 +675,20 @@ def check_iss_kernels(sx, sv, radii):
     voxel_f = math.sqrt(math.pi * rf**2 / FEATURE_NR_POINTS)
     normal_f = math.sqrt(NORMAL_NR_POINTS / math.pi) * voxel_f
     sm, smv, row_of, _n_sm = voxel_centroids_map(sx, sv, voxel_f)
-    normal = cg.surface_pass(cg.plan_grid(sm, smv, normal_f), normal_f)[0]
+    # K1's full pass on the voxel surface at normal_f (the FPFH and SHOT
+    # flagship routes run it once a side)
+    pns = cg.plan_grid(sm, smv, normal_f)
+    r2s = cg._f32_square(normal_f)
+    k1, k1_p = cg.surface_cuda(pns, r2s), cg.surface_plain(pns, r2s)
+    records.append(dict(
+        name="surface_fs", route="cuda", source=src + "surface.cu", replaces=pallas + "1241",
+        max_abs_err=surface_err(*k1, *k1_p, "K1 (voxel surface)"), queries=int(pns.n_valid),
+        ms=cuda_ms(lambda: cg.surface_cuda(pns, r2s), 10),
+        plain_ms=cuda_ms(lambda: cg.surface_plain(pns, r2s), 1),
+        **stencil_bound("surface", pns, k1_p[0][:, 7].sum(), tbytes(
+            pns.pts, pns.cell_of, pns.cols, pns.oid, *k1)), library_ms=None))
+    log(f"# K1 on the voxel surface ok: {pns.n_valid} rows, {records[-1]['ms']:.4f} ms")
+    normal = cg.surface_pass(pns, normal_f)[0]
     pf = cg.set_normals(cg.plan_grid(sm, smv, rf), normal)
     r2f = cg._f32_square(rf)
     cen = cg.aabb_centre(pf)
@@ -774,6 +925,21 @@ def check_classic_fpfh(S):
         library_ms=None))
     log(f"# K6 kp_rows (classic) ok: {n} rows of {srt.numel()}, "
         f"max_abs_err={records[-1]['max_abs_err']:.3g}")
+
+    # the route's fpfh stage as flagship._masked_route runs it (normals into
+    # the plan, compacted rows, fpfh_pass(kp=, kp_rows=)), split into the
+    # stencil slots, K5, K6 and the rest (copies, slot maps, host reads)
+    def stage():
+        return cg.fpfh_pass(cg.set_normals(pf, normal), rf, kp=kp,
+                            kp_rows=_compact_rows(kp, n, _pad_quantum(n)))
+
+    split = {"stage": cuda_ms(stage, 3),
+             "stencil_slots": cuda_ms(lambda: cg.stencil_slots(
+                 pf, torch.nonzero(kp[pf.order[:pf.n_valid]]).squeeze(1)), 3),
+             "spfh_at": records[0]["ms"], "combine_at": records[1]["ms"]}
+    split["rest"] = split["stage"] - sum(v for k, v in split.items() if k != "stage")
+    records[0]["fpfh_stage_ms"] = split
+    log("# classic fpfh stage (ms): " + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
     return records
 
 
@@ -976,6 +1142,9 @@ def main() -> int:
     log(f"# radii ({time.perf_counter() - t0:.2f} s set-up): {radii}")
 
     records = check_kernels(dev, a, b, radii)
+    records[1]["pair_body_sass"] = pair_body_sass()
+    log(f"# K5 pair body: {records[1]['pair_body_sass']} SASS instructions (static, probe kernel)")
+    check_cell_edges(dev)
     check_nn_edges(dev)
 
     counters = (cellgrid.surface_cuda, cellgrid.spfh_cuda, cellgrid.combine_cuda,
@@ -1041,7 +1210,8 @@ def main() -> int:
         f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
     assert finite, "large run: non-finite pose"
-    large = {"combine_262k": cellgrid.combine_cuda.launches,
+    large = {"spfh_262k": cellgrid.spfh_cuda.launches,
+             "combine_262k": cellgrid.combine_cuda.launches,
              "nn_l2_262k": nn_l2.nn_l2_cuda.launches}
     log(f"# launches in the large runs: {large}")
     assert all(n > 0 for n in large.values()), "a kernel of the large path was never launched"
@@ -1057,6 +1227,7 @@ def main() -> int:
             for route, got in iss_launches.items():
                 rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
     own = {"surface_at": ("masked_fpfh", "surface_at_cuda"),
+           "surface_fs": ("fpfh", "surface_cuda"),
            "nn_l2_d352": ("shot", "nn_l2_cuda"),
            "nn_l2_iss": ("fpfh", "nn_l2_cuda"),
            "spfh_at_classic": ("masked_fpfh", "spfh_at_cuda"),

@@ -17,7 +17,9 @@ constexpr float kBig = 3.0e38f;
 constexpr double kPi = 3.14159265358979323846;
 
 // Visit every sorted point of the 27-cell stencil of `cell`, column by
-// column (the radius test is the visitor's).
+// column (the radius test is the visitor's).  One dependent candidate load
+// in flight per thread: the ISS kernels (K2-K4) and K6's full pass still
+// walk this way, and can move to walk_stencil_ahead in their own change.
 template <class Visit>
 __device__ __forceinline__ void walk_stencil(const int2* __restrict__ cols, int cell,
                                              Visit&& visit) {
@@ -26,6 +28,42 @@ __device__ __forceinline__ void walk_stencil(const int2* __restrict__ cols, int 
   for (int c = 0; c < 9; ++c) {
     const int2 r = __ldg(row + c);
     for (int j = r.x; j < r.y; ++j) visit(j);
+  }
+}
+
+// The same walk with U candidate rows in flight: each column goes in groups
+// of U, whose float4 rows are all loaded before the visitor sees the first
+// of them.  visit(j0, c, n) gets candidates j0 .. j0 + n - 1 (n <= U; a
+// column's last group holds its tail) with c[u] the row of j0 + u, and must
+// visit them in u order: the visit order is walk_stencil's, so sums taken
+// in it keep their bits.  A full group is visited with the literal U, so
+// the visitor's `u < n` guards fold away there.  after() runs after every
+// group.  The next column's range is read before the current one is walked.
+template <int U, class VisitGroup, class AfterGroup>
+__device__ __forceinline__ void walk_stencil_ahead(const float4* __restrict__ pts,
+                                                   const int2* __restrict__ cols, int cell,
+                                                   VisitGroup&& visit, AfterGroup&& after) {
+  const int2* row = cols + 9 * static_cast<size_t>(cell);
+  int2 next = __ldg(row);
+#pragma unroll 1
+  for (int c = 0; c < 9; ++c) {
+    const int2 r = next;
+    if (c < 8) next = __ldg(row + c + 1);
+#pragma unroll 1
+    for (int j0 = r.x; j0 < r.y; j0 += U) {
+      float4 p[U];
+      if (r.y - j0 >= U) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) p[u] = __ldg(pts + j0 + u);
+        visit(j0, p, U);
+      } else {
+        const int n = r.y - j0;
+#pragma unroll
+        for (int u = 0; u < U; ++u) p[u] = __ldg(pts + j0 + min(u, n - 1));
+        visit(j0, p, n);
+      }
+      after();
+    }
   }
 }
 

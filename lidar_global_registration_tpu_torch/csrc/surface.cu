@@ -2,19 +2,27 @@
 // nearest neighbour of every point.
 //
 // Replaces lidar_global_registration_tpu/ops/pallas/cellgrid.py
-// `_surface_cell` (with `_block_geometry` and `_smallest_eig3`), which on the
-// TPU contracts block-centred candidate moments against a pair mask on the
-// MXU.  Here one thread owns one sorted query and walks its 9 stencil
+// `_surface_cell` (:1241, with `_block_geometry` and `_smallest_eig3`), which
+// on the TPU contracts block-centred candidate moments against a pair mask
+// on the MXU.  Here one thread owns one sorted query and walks its 9 stencil
 // columns, accumulating the moments [1, d, d (x) d] of the neighbours within
 // r (self included) in registers, centred on the query itself: the self
 // pair's difference is then exactly 0, so the d2 > 0 self-exclusion of the
 // nearest-neighbour search holds (cellgrid.py:1278-1282).
 //
-// Bound on the H100: the candidate loads (16 B each, ~30 neighbours inside r
-// out of the ~9x that the stencil scans) and the latency of the dependent
-// walk, not arithmetic.  Points are sorted by cell, so the 32 threads of a
-// warp mostly scan the same columns in step and their loads of one
-// candidate coalesce into one L1 transaction.
+// Bound on the H100: the walk, not arithmetic (a test per candidate, 10
+// adds / multiplies per neighbour, one eigen solve per query; ~30
+// neighbours inside r out of the ~3-9x that the stencil scans).  Points are
+// sorted by cell, so the 32 threads of a warp mostly scan the same columns
+// in step and their loads of one candidate coalesce into one L1
+// transaction.  The walk keeps kSurfaceAhead candidate rows in flight
+// (lgr::walk_stencil_ahead; 4 measured faster than 2 and 8) and visits them
+// in the plain walk's order, so the moment sums keep their bits; the
+// nearest neighbour is tracked by slot and its input id read only at a
+// distance tie and once at the end, which leaves the walk no dependent
+// load (the nearest neighbour is the lexicographic minimum of (d2, input
+// id), whatever the order).  With the eigen finish the kernel
+// takes 48 registers, 10 blocks of 128 an SM, so it needs no register cap.
 //
 // An optional list of sorted query slots gives the need-masked form
 // (`surface_pass(need=)`, cellgrid.py:1734-1747, where the TPU retabs its
@@ -22,13 +30,12 @@
 // and writes its row at that slot, so a masked pass computes only the
 // cells around needed points.  The slots come in ascending order, so the
 // threads of a warp still mostly share cells.
-#include <climits>
-
 #include "cellgrid.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSurfaceAhead = 4;  // candidate rows in flight on the walk
 
 __global__ void __launch_bounds__(kThreads)
     surface_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
@@ -42,30 +49,43 @@ __global__ void __launch_bounds__(kThreads)
   float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
   float sxx = 0.f, sxy = 0.f, sxz = 0.f, syy = 0.f, syz = 0.f, szz = 0.f;
   float dmin = lgr::kBig;
-  int best = INT_MAX;  // input id of the nearest neighbour; ties -> lowest id
-  lgr::walk_stencil(cols, cell_of[i], [&](int j) {
-    const float4 c = __ldg(pts + j);
-    const float dx = c.x - q.x, dy = c.y - q.y, dz = c.z - q.z;
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    if (!(d2 <= r2)) return;
-    s0 += 1.f;
-    sx += dx;
-    sy += dy;
-    sz += dz;
-    sxx += dx * dx;
-    sxy += dx * dy;
-    sxz += dx * dz;
-    syy += dy * dy;
-    syz += dy * dz;
-    szz += dz * dz;
-    if (d2 > 0.f) {
-      const int o = __ldg(oid + j);
-      if (d2 < dmin || (d2 == dmin && o < best)) {
-        dmin = d2;
-        best = o;
-      }
-    }
-  });
+  int bj = -1;  // sorted slot of the nearest neighbour so far
+  int bo = -1;  // its input id once a tie has read it, else -1
+  lgr::walk_stencil_ahead<kSurfaceAhead>(
+      pts, cols, cell_of[i], [&](int j0, const float4 (&c)[kSurfaceAhead], int n) {
+#pragma unroll
+        for (int u = 0; u < kSurfaceAhead; ++u) {
+          if (u >= n) break;
+          const float dx = c[u].x - q.x, dy = c[u].y - q.y, dz = c[u].z - q.z;
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          if (!(d2 <= r2)) continue;
+          s0 += 1.f;
+          sx += dx;
+          sy += dy;
+          sz += dz;
+          sxx += dx * dx;
+          sxy += dx * dy;
+          sxz += dx * dz;
+          syy += dy * dy;
+          syz += dy * dz;
+          szz += dz * dz;
+          if (d2 > 0.f) {
+            if (d2 < dmin) {
+              dmin = d2;
+              bj = j0 + u;
+              bo = -1;
+            } else if (d2 == dmin) {  // a tie goes to the lower input id
+              if (bo < 0) bo = __ldg(oid + bj);
+              const int o = __ldg(oid + j0 + u);
+              if (o < bo) {
+                bj = j0 + u;
+                bo = o;
+              }
+            }
+          }
+        }
+      },
+      [] {});
   const float cnt = fmaxf(s0, 1.f);
   const float mx = sx / cnt, my = sy / cnt, mz = sz / cnt;
   float l0, l1, l2, vx, vy, vz;
@@ -84,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
   o[7] = s0;
   const bool has = dmin < lgr::kBig;
   nn_d[i] = has ? sqrtf(dmin) : 0.f;
-  nn_id[i] = has ? best : -1;
+  nn_id[i] = has ? (bo >= 0 ? bo : __ldg(oid + bj)) : -1;
 }
 
 }  // namespace

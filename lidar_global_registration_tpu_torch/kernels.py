@@ -46,8 +46,9 @@ SIGNATURES = {
     "lgr_iss_saliency": (_P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
     # pts, cell_of, cols, sal, ok, n, r2, min_nb, kp, stream
     "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
-    # pts, nrm, cell_of, cols, slots (or 0), m, r2, gx, gy, gz, spfh, cnt, stream
-    "lgr_spfh": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
+    # ctr, nrm, cell_of, cols, slots (or 0), items, n_items, r2, spfh, cnt,
+    # stream
+    "lgr_spfh": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P),
     # pts, cell_of, cols, spfh, slots (or 0), rows (or 0), m, r2, per_thread,
     # feat, kcnt, stream
     "lgr_combine": (_P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P),

@@ -10,9 +10,10 @@ laid out for the H100 instead of the TPU:
           of its stencil, each a contiguous [start, end) range of the sorted
           order (z is the fastest key axis), found with searchsorted.
   passes: one CUDA thread per sorted query walks its cell's 9 ranges
-          (csrc/surface.cu, csrc/iss.cu, csrc/fpfh.cu).  Neighbouring
-          threads of a warp sit in one cell, so their candidate loads hit
-          the same lines.
+          (csrc/surface.cu, csrc/iss.cu, csrc/fpfh.cu; K5 gives a warp up
+          to 32 queries of one cell, spfh_items).  Neighbouring threads of
+          a warp sit in one cell, so their candidate loads hit the same
+          lines.
 
 Every kernel has a plain PyTorch version here that walks the same plan
 with padded candidate blocks over query chunks.  A wrapper runs the plain
@@ -705,7 +706,30 @@ def spfh_plain(plan: GridPlan, r2: float, centre: torch.Tensor, slots=None):
     return spfh, count
 
 
+SPFH_ITEM = 32  # queries per K5 work item: one warp's lanes
+
+
+def spfh_items(cells: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """K5's work list over a query list whose cells are `cells` (i32 or
+    i64[m], nondecreasing, as ascending slots give them; n_cells bounds the
+    cells they touch): i32[K, 2] rows (first position, length), each run of
+    equal cells cut into pieces of at most SPFH_ITEM positions, in position
+    order, then rows (m, 0) up to K = min(m, n_cells + ceil(m /
+    SPFH_ITEM)), a bound on the item count that needs no host read.  Every
+    position lies in exactly one item, no item crosses a cell, and the
+    kernel skips the rows of length 0."""
+    m = cells.shape[0]
+    pos = torch.arange(m, device=cells.device)
+    starts = (pos - torch.searchsorted(cells, cells)) % SPFH_ITEM == 0
+    K = min(m, n_cells + -(-m // SPFH_ITEM))
+    first = torch.full((K + 2,), m, dtype=torch.int64, device=cells.device)  # [K + 1]: a sink
+    first.scatter_(0, torch.where(starts, torch.cumsum(starts, 0) - 1, K + 1), pos)
+    return torch.stack([first[:K], first[1:K + 1] - first[:K]], 1).to(torch.int32).contiguous()
+
+
 def _launch_spfh(plan: GridPlan, r2: float, centre: torch.Tensor, slots, m: int):
+    """K5 over the sorted queries `slots` (every query when None): one warp
+    per work item of spfh_items, on the rows centred on `centre`."""
     n = plan.n_valid
     dev = plan.pts.device
     spfh = torch.zeros((n, DIM), dtype=torch.float32, device=dev)
@@ -713,15 +737,22 @@ def _launch_spfh(plan: GridPlan, r2: float, centre: torch.Tensor, slots, m: int)
     if m == 0:
         return spfh, count
     _check_plan(plan)
-    kernels.check(plan.nrm, torch.float32, (plan.pts.shape[0], 4), "nrm")
+    N = plan.pts.shape[0]
+    kernels.check(plan.nrm, torch.float32, (N, 4), "nrm")
+    if N >= 1 << 26:  # the kernel's queue packs a slot and a lane in 32 bits
+        raise ValueError(f"K5 takes plans of fewer than 2^26 rows, got {N}")
     if slots is not None:
         kernels.check(slots, torch.int32, (m,), "slots")
-    gx, gy, gz = (float(v) for v in centre.tolist())
+    items = spfh_items(plan.cell_of if slots is None else plan.cell_of[slots.long()],
+                       plan.cols.shape[0])
+    # the same float32 subtraction per coordinate as the pair features'
+    # centring (w stays 0)
+    ctr = plan.pts - torch.nn.functional.pad(centre.to(torch.float32), (0, 1))
     kernels.launch(
-        "lgr_spfh", plan.pts.data_ptr(), plan.nrm.data_ptr(),
-        plan.cell_of.data_ptr(), plan.cols.data_ptr(),
-        0 if slots is None else slots.data_ptr(), m, r2, gx, gy, gz,
-        spfh.data_ptr(), count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        "lgr_spfh", ctr.data_ptr(), plan.nrm.data_ptr(), plan.cell_of.data_ptr(),
+        plan.cols.data_ptr(), 0 if slots is None else slots.data_ptr(), items.data_ptr(),
+        items.shape[0], r2, spfh.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     return spfh, count
 

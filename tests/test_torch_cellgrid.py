@@ -226,3 +226,63 @@ def test_combine_order_sorts_slots_stably_with_a_row_map():
     assert srt.tolist() == [-1, -1, 0, 3, 3, 7, 7, 9]
     assert rows.tolist() == [1, 5, 4, 2, 6, 0, 3, 7]
     assert torch.equal(slots[rows.long()], srt)
+
+
+def _cells_cloud(rng):
+    """Clusters that each fill one cell of a radius-1 grid, of 1, 32, 33,
+    200, 64 and 5 points, beside a bump terrain of 1,024 points."""
+    sizes = [1, 32, 33, 200, 64, 5]
+    parts = [np.array([3.0 * k, 0.0, 0.0]) + rng.uniform(-0.2, 0.2, size=(s, 3))
+             for k, s in enumerate(sizes)]
+    terrain = _bump_cloud(1024, 0, rng)[0] + np.array([30.0, 0.0, 5.0], np.float32)
+    xyz = np.concatenate(parts + [terrain]).astype(np.float32)
+    plan = cg.plan_grid(torch.from_numpy(xyz), torch.ones(xyz.shape[0], dtype=torch.bool), 1.0)
+    return plan, sizes
+
+
+def _slot_lists(plan, rng):
+    n = plan.n_valid
+    kp = torch.from_numpy(rng.choice(n, size=40, replace=False))
+    part = torch.nonzero(torch.from_numpy(rng.random(n) < 0.4)).squeeze(1)
+    single = torch.sort(torch.from_numpy(rng.choice(n, size=9, replace=False))).values
+    return {"full": None, "stencil": cg.stencil_slots(plan, kp), "partial cells": part,
+            "single slots": single, "one slot": single[:1],
+            "empty": torch.zeros((0,), dtype=torch.int64)}
+
+
+@pytest.mark.parametrize("form", ["full", "stencil", "partial cells", "single slots", "one slot",
+                                  "empty"])
+def test_spfh_items_cut_each_cell_into_warps(rng, form):
+    """K5's work list: every query position in exactly one item, items in
+    position order, none crossing a cell or longer than 32, and a cell's
+    queries cut into full items of 32 and one remainder; then padding rows
+    (m, 0) up to the bound n_cells + ceil(m / 32)."""
+    plan, sizes = _cells_cloud(rng)
+    assert torch.bincount(plan.cell_of.long())[:len(sizes)].tolist() == sizes
+    slots = _slot_lists(plan, rng)[form]
+    cells = plan.cell_of if slots is None else plan.cell_of[slots]
+    n_cells = plan.cols.shape[0]
+    padded = cg.spfh_items(cells, n_cells)
+    m = cells.shape[0]
+    assert padded.dtype == torch.int32 and padded.shape[1:] == (2,)
+    assert padded.shape[0] == min(m, n_cells + -(-m // cg.SPFH_ITEM))
+    real = padded[:, 1] > 0
+    n_items = int(real.sum())
+    assert bool(real[:n_items].all()) and padded[n_items:].tolist() == [[m, 0]] * (
+        padded.shape[0] - n_items)
+    items = padded[:n_items]
+    first, length = items[:, 0].long(), items[:, 1].long()
+    assert bool((length >= 1).all()) and bool((length <= cg.SPFH_ITEM).all())
+    # back to back from 0 to m: each position in exactly one item, in order
+    ends = torch.cat([first.new_zeros(1), first + length])
+    assert torch.equal(ends[:-1], first) and int(ends[-1]) == m
+    assert n_items <= padded.shape[0]
+    run = torch.repeat_interleave(torch.arange(items.shape[0]), length)
+    for it in range(items.shape[0]):
+        assert bool((cells[run == it] == cells[first[it]]).all()), "an item crosses a cell"
+    # per cell: ceil(count / 32) items, all full but the last
+    uniq, counts = torch.unique_consecutive(cells, return_counts=True)
+    want = [min(cg.SPFH_ITEM, int(c) - k) for c in counts for k in range(0, int(c), cg.SPFH_ITEM)]
+    assert length.tolist() == want
+    if form == "full":
+        assert want[:5] == [1, 32, 32, 1, 32]
