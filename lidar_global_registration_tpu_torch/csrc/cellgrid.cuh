@@ -1,4 +1,4 @@
-// Device code shared by the cell-list kernels (surface.cu, fpfh.cu): the
+// Device code shared by the cell-list kernels (surface.cu, iss.cu, fpfh.cu): the
 // 9-column CSR stencil walk and the Smith closed-form smallest eigenpair.
 //
 // The plan (ops/cellgrid.py plan_grid) sorts the points by an int64
@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace lgr {
 
 constexpr float kBig = 3.0e38f;
@@ -18,8 +20,8 @@ constexpr double kPi = 3.14159265358979323846;
 
 // Visit every sorted point of the 27-cell stencil of `cell`, column by
 // column (the radius test is the visitor's).  One dependent candidate load
-// in flight per thread: the ISS kernels (K2-K4) and K6's full pass still
-// walk this way, and can move to walk_stencil_ahead in their own change.
+// in flight per thread: K2 and K6's full pass still walk this way, and can
+// move to walk_near (below) in their own change.
 template <class Visit>
 __device__ __forceinline__ void walk_stencil(const int2* __restrict__ cols, int cell,
                                              Visit&& visit) {
@@ -64,6 +66,131 @@ __device__ __forceinline__ void walk_stencil_ahead(const float4* __restrict__ pt
       }
       after();
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A walk that knows the radius (K4): stencil columns that provably hold no
+// point within r of the query are left out.
+//
+// Which columns may go.  The plan put a float32 row x in cell
+// floor(u_plan), u_plan = (x64 - origin) / cell evaluated in float64
+// (ops/cellgrid.py plan_grid; PyTorch may multiply by 1 / cell instead).
+// face_gaps evaluates u the same way from the same float32 row: both values
+// are within 4 ulp64 of the exact quotient, so they differ by less than
+// 1e-15 |u|, under 1e-7 cells while |u| < 1e8 (checked per query, else
+// nothing is skipped on that axis).  With f = u - floor(u):
+//   - f within kFaceGuard (1e-6) of 0 or 1: the query's own cell is in
+//     doubt, both gaps of that axis are 0 (nothing skipped on that axis);
+//   - else the kernel's cell is the plan's, and every point p the plan put
+//     in the next lower / higher cell layer has u_plan(p) <= c resp.
+//     >= c + 1, so |p - q| along that axis is at least cell * (f - 1e-6)
+//     resp. cell * (1 - f - 1e-6): the guard swallows the 1e-7 of both
+//     quotients and the float32 roundings of f and 1 - f (6e-8 each).
+// A column (dx, dy) is left out when gap_x^2 + gap_y^2 > lim, lim = r2 (1 +
+// kNearMargin) / cell^2 with kNearMargin = 1e-5: then the exact squared
+// distance of every point in it exceeds r2 (1 + 1e-5).  The kernels' d2 is
+// float32 from p - q (one rounding a difference, one a square, two for the
+// sums: under 5e-7 relatively; a square that underflows loses under 1e-37,
+// nothing beside r2 >= 1e-30, below which near_grid skips nothing), and
+// the float32 test itself rounds by under 1e-6 of lim: d2 > r2 for every
+// such point, so it is no hit for any visitor that tests d2 <= r2, and a
+// column left out changes no sum, count or order.  The rows must be the
+// float32 values the plan binned (plan_grid takes them from one tensor).
+constexpr float kFaceGuard = 1e-6f;
+constexpr double kNearMargin = 1e-5;
+constexpr unsigned kEveryColumn = 0x1ffu;  // a `todo` that leaves nothing out
+
+struct NearGrid {
+  const double* origin;  // device f64[3], the plan's grid corner
+  double inv_cell;
+  float lim;  // squared gap, in cells, above which a column is left out
+};
+
+// Host side: the grid of a plan (GridPlan.origin, GridPlan.cell) and the
+// search radius, as the kernels take them.
+inline NearGrid near_grid(const void* origin, double cell, float r2) {
+  NearGrid g;
+  g.origin = static_cast<const double*>(origin);
+  g.inv_cell = 1.0 / cell;
+  g.lim = r2 >= 1e-30f
+              ? static_cast<float>(r2 * (1.0 + kNearMargin) * g.inv_cell * g.inv_cell)
+              : INFINITY;
+  return g;
+}
+
+// Lower bounds, in cells, of the distance along one axis from coordinate q
+// to the cell layers below (lo) and above (hi) the query's own.
+__device__ __forceinline__ void face_gaps(float q, double origin, double inv_cell, float& lo,
+                                          float& hi) {
+  const double u = (static_cast<double>(q) - origin) * inv_cell;
+  const float f = static_cast<float>(u - floor(u));
+  const bool safe = fabs(u) < 1e8 && f > kFaceGuard && f < 1.f - kFaceGuard;
+  lo = safe ? f - kFaceGuard : 0.f;
+  hi = safe ? (1.f - f) - kFaceGuard : 0.f;
+}
+
+// Bit c = 3 (dx + 1) + (dy + 1) set: stencil column c may hold a point
+// within r of q and is walked (ops/cellgrid.py near_columns is the plain
+// mirror of this rule).
+__device__ __forceinline__ unsigned near_columns(const float4 q, const NearGrid g) {
+  float gx[3], gy[3];
+  gx[1] = gy[1] = 0.f;
+  face_gaps(q.x, __ldg(g.origin), g.inv_cell, gx[0], gx[2]);
+  face_gaps(q.y, __ldg(g.origin + 1), g.inv_cell, gy[0], gy[2]);
+  unsigned keep = 0;
+#pragma unroll
+  for (int c = 0; c < 9; ++c)
+    if (gx[c / 3] * gx[c / 3] + gy[c % 3] * gy[c % 3] <= g.lim) keep |= 1u << c;
+  return keep;
+}
+
+// The order in which a walk takes the stencil columns: ascending, as
+// walk_stencil, or with kCentreFirst the query's own column, then the four
+// that share a face with it, then the corners: nearer columns hold more of
+// the neighbours, which suits a visitor that may stop early and needs no
+// order.
+template <bool kCentreFirst>
+struct NearOrder {
+  static constexpr unsigned long long kCols = kCentreFirst ? 0x862075314ull : 0x876543210ull;
+  // the stencil column that is k-th in the order
+  __device__ __forceinline__ static int column(int k) {
+    return static_cast<int>(kCols >> (4 * k)) & 15;
+  }
+  // near_columns' mask in the order: bit k set when the k-th column is kept
+  __device__ __forceinline__ static unsigned todo(unsigned keep) {
+    unsigned m = 0;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) m |= (keep >> column(k) & 1u) << k;
+    return m;
+  }
+};
+
+// walk_stencil over the kept columns only: a lane takes its own next kept
+// column per step (`todo`, from NearOrder::todo or kEveryColumn, loses a bit
+// a step).  visit(j0, j1) gets the column's range of sorted slots and takes
+// them in ascending order: with the ascending NearOrder a lane's visit order
+// is walk_stencil's without the columns left out, so sums taken in it keep
+// their bits.  after(more) runs after every step, `more` telling whether
+// this lane has columns left, and ends the lane's walk by returning false:
+// `return more` walks every kept column; a warp vote there must return the
+// same on all lanes.  The candidate loop is the visitor's own plain loop:
+// the compiler unrolls it and batches its loads.  Lanes whose masks differ
+// fall out of step, and a warp whose lanes read different columns in one
+// step loses the coalescing of its loads: worth it for a visitor that ends
+// early (K4), not for one that takes every hit (K3 walks every column).
+template <bool kCentreFirst = false, class VisitRange, class After>
+__device__ __forceinline__ void walk_near(const int2* __restrict__ cols, int cell,
+                                          unsigned& todo, VisitRange&& visit, After&& after) {
+  const int2* row = cols + 9 * static_cast<size_t>(cell);
+  for (;;) {
+    if (todo) {
+      const int k = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int2 r = __ldg(row + NearOrder<kCentreFirst>::column(k));
+      visit(r.x, r.y);
+    }
+    if (!after(todo != 0)) break;
   }
 }
 

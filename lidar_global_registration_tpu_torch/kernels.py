@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signatures (all return int = cudaError_t)
 SIGNATURES = {
     # pts, cell_of, cols, oid, slots (or 0), m, r2, out8, nn_d, nn_id, stream
@@ -44,8 +44,8 @@ SIGNATURES = {
     "lgr_iss_count": (_P, _P, _P, _I, _F, _P, _P),
     # pts, cell_of, cols, count, n, r2, gamma21, gamma32, sal, ok, nnb, stream
     "lgr_iss_saliency": (_P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
-    # pts, cell_of, cols, sal, ok, n, r2, min_nb, kp, stream
-    "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
+    # pts, cell_of, cols, sal, ok, n, r2, min_nb, origin, cell, kp, stream
+    "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _D, _P, _P),
     # ctr, nrm, cell_of, cols, slots (or 0), items, n_items, r2, spfh, cnt,
     # stream
     "lgr_spfh": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P),

@@ -11,9 +11,10 @@ laid out for the H100 instead of the TPU:
           order (z is the fastest key axis), found with searchsorted.
   passes: one CUDA thread per sorted query walks its cell's 9 ranges
           (csrc/surface.cu, csrc/iss.cu, csrc/fpfh.cu; K5 gives a warp up
-          to 32 queries of one cell, spfh_items).  Neighbouring threads of
-          a warp sit in one cell, so their candidate loads hit the same
-          lines.
+          to 32 queries of one cell, spfh_items; K4 leaves out the columns
+          beyond its radius, near_columns, and ends a query at its first
+          blocking neighbour).  Neighbouring threads of a warp sit in one
+          cell, so their candidate loads hit the same lines.
 
 Every kernel has a plain PyTorch version here that walks the same plan
 with padded candidate blocks over query chunks.  A wrapper runs the plain
@@ -541,6 +542,38 @@ def _stream(plan: GridPlan):
     return torch.cuda.current_stream(plan.pts.device).cuda_stream
 
 
+_FACE_GUARD = 1e-6  # csrc/cellgrid.cuh kFaceGuard, in cells
+_NEAR_MARGIN = 1e-5  # csrc/cellgrid.cuh kNearMargin, on r2
+
+
+def near_columns(plan: GridPlan, r2: float) -> torch.Tensor:
+    """bool[n, 9]: the stencil columns (x-major over dx, dy, as `cols`)
+    that K4 walks for each sorted query; the others provably hold no point
+    within r.  The plain mirror of csrc/cellgrid.cuh `near_columns`
+    on the kernels' own arguments (the sorted float32 rows, plan.origin,
+    plan.cell, r2): per axis the query's place in its cell from the float64
+    quotient, lower bounds of its gaps to the neighbouring cell layers
+    (none within _FACE_GUARD of a face), and a column is left out when its
+    squared gap exceeds r2 (1 + _NEAR_MARGIN) / cell^2.  No kernel takes
+    this table: K4 applies the rule per thread from plan.origin and
+    plan.cell (`origin`, `cell` of lgr_iss_nms), and the tests and the count
+    of the candidates it may visit use the mirror."""
+    q = plan.pts[:plan.n_valid, :2]
+    inv_cell = 1.0 / plan.cell
+    u = (q.to(torch.float64) - plan.origin[:2]) * inv_cell
+    f = (u - torch.floor(u)).to(torch.float32)
+    safe = (u.abs() < 1e8) & (f > _FACE_GUARD) & (f < 1.0 - _FACE_GUARD)
+    zero = torch.zeros_like(f)
+    lo = torch.where(safe, f - _FACE_GUARD, zero)
+    hi = torch.where(safe, (1.0 - f) - _FACE_GUARD, zero)
+    gap = torch.stack([lo, zero, hi], -1)  # [n, axis, layer]
+    lim = math.inf  # an r2 too small for the rounding argument: skip nothing
+    if r2 >= 1e-30:
+        lim = float(np.float32(r2 * (1.0 + _NEAR_MARGIN) * inv_cell * inv_cell))
+    gx, gy = gap[:, 0, :, None], gap[:, 1, None, :]
+    return (gx * gx + gy * gy <= lim).reshape(-1, 9)
+
+
 def iss_count_cuda(plan: GridPlan, r2: float) -> torch.Tensor:
     """K2 · csrc/iss.cu `iss_count_kernel`: same contract as iss_count_plain."""
     n = plan.n_valid
@@ -582,7 +615,9 @@ iss_saliency_cuda.launches = 0
 
 def iss_nms_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
                  min_neighbors: int) -> torch.Tensor:
-    """K4 · csrc/iss.cu `iss_nms_kernel`: same contract as iss_nms_plain."""
+    """K4 · csrc/iss.cu `iss_nms_kernel`: same contract as iss_nms_plain.
+    The kernel gets the plan's grid (origin, cell) to leave out the stencil
+    columns beyond the radius (near_columns)."""
     n = plan.n_valid
     kp = torch.empty((n,), dtype=torch.bool, device=plan.pts.device)
     if n == 0:
@@ -590,9 +625,11 @@ def iss_nms_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor
     _check_plan(plan)
     kernels.check(sal, torch.float32, (n,), "sal")
     kernels.check(okq, torch.bool, (n,), "ok")
+    kernels.check(plan.origin, torch.float64, (3,), "origin")
     kernels.launch("lgr_iss_nms", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
                    plan.cols.data_ptr(), sal.data_ptr(), okq.data_ptr(), n, r2,
-                   int(min_neighbors), kp.data_ptr(), _stream(plan))
+                   int(min_neighbors), plan.origin.data_ptr(), plan.cell, kp.data_ptr(),
+                   _stream(plan))
     iss_nms_cuda.launches += 1
     return kp
 

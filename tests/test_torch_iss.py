@@ -104,3 +104,122 @@ def test_iss_kernels_refuse_cpu_tensors(box):
                  lambda: cg.iss_nms_cuda(plan, r2, sal, okq, 4)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# K4's walk leaves out stencil columns beyond the radius (csrc/cellgrid.cuh
+# near_columns); cg.near_columns is its plain mirror
+# ---------------------------------------------------------------------------
+R_EXACT = 0.625  # 5/8: (3/8, 4/8, 0) has float32 d2 == r2 exactly
+
+
+def _skip_cloud(kind: str, cell: float, rng) -> np.ndarray:
+    n = 3000
+    if kind == "random":
+        return rng.uniform(0, 14, (n, 3)).astype(np.float32) * [1, 1, 0.15]
+    if kind == "faces":
+        # the plan's faces lie at (k + 1/2) widened cells above the lowest
+        # point: every coordinate on one with probability 1/2, so points sit on
+        # faces, edges and corners of their cells, up to float32 rounding
+        w = cell * (1.0 + cg._CELL_MARGIN)
+        k = rng.integers(0, 6, (n, 3))
+        x = np.where(rng.random((n, 3)) < 0.5, (k + 0.5) * w, rng.uniform(0, 6 * w, (n, 3)))
+        x[0] = 0.0  # the lowest point, which fixes the grid's corner
+        return (x * [1, 1, 0.3]).astype(np.float32)
+    # pairs at exactly d2 == r2: a on a 1/1024 lattice, b = a + (3/8, 4/8, 0)
+    a = rng.integers(0, 12 * 1024, (n // 2, 3)) / 1024.0 * [1, 1, 0.1]
+    return np.concatenate([a, a + [0.375, 0.5, 0.0]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "faces", "exact"])
+@pytest.mark.parametrize("cell_over_r", [1.0, 1.545, 4.0])
+def test_near_columns_keep_every_neighbour(kind, cell_over_r):
+    """No pair with float32 d2 <= r2, as the kernels compute it, lies in a
+    stencil column that the skip rule leaves out."""
+    cell = R_EXACT * cell_over_r
+    xyz = torch.from_numpy(_skip_cloud(kind, cell, np.random.default_rng(41)))
+    plan = cg.plan_grid(xyz, torch.ones(xyz.shape[0], dtype=torch.bool), cell)
+    r2 = cg._f32_square(R_EXACT)
+    assert r2 == 0.390625
+    keep = cg.near_columns(plan, r2)
+    assert keep.shape == (plan.n_valid, 9) and bool(keep[:, 4].all())
+    corner = torch.tensor([0, 2, 6, 8])
+    hits = on_r = 0
+    for a, b, sl, ids, ok in cg._sorted_chunks(plan):
+        cols = plan.cols[plan.cell_of[sl].long()].long()
+        cum = (cols[..., 1] - cols[..., 0]).cumsum(1)
+        k = torch.arange(ids.shape[1])[None, :].expand_as(ids).contiguous()
+        col = torch.searchsorted(cum, k, right=True).clamp_max(8)
+        d2 = cg._pair_d2(plan, sl, ids)[3]
+        hit = ok & (d2 <= r2)
+        assert bool(keep[a:b].gather(1, col)[hit].all())
+        hits += int(hit.sum())
+        on_r += int((hit & (d2 == r2) & torch.isin(col, corner)).sum())
+    assert hits > 3 * plan.n_valid  # the clouds do hold neighbours
+    if kind == "random":  # and the rule does leave columns out
+        share = 1.0 - float(keep.float().mean())
+        assert share > {1.0: 0.05, 1.545: 0.3, 4.0: 0.6}[cell_over_r], share
+    if kind == "exact":  # pairs at exactly r across a cell corner are kept
+        assert on_r > 10, on_r
+
+
+def test_iss_pass_matches_jax_on_a_wider_cell(box):
+    """iss_pass on a plan whose cell exceeds the ISS radius, as the classic
+    masked route builds it (cell = max(normal_cell, r_iss), ~1.545 r_iss):
+    the same bounds as test_iss_pass_matches_jax, and the port's keypoints
+    are those of its cell = r plan exactly."""
+    xyz, valid = box["xyz"], box["valid"]
+    wide = 1.545 * RADIUS
+    jplan = jcg.plan_grid(jnp.asarray(xyz), jnp.zeros(xyz.shape, jnp.float32),
+                          jnp.asarray(valid), wide, exact=True)
+    jkp, jsal = (np.asarray(v) for v in jcg.iss_pass(jplan, RADIUS, interpret=True))
+    plan = cg.plan_grid(torch.from_numpy(xyz), torch.from_numpy(valid), wide)
+    tkp, tsal = (v.numpy() for v in cg.iss_pass(plan, RADIUS))
+    on = (jsal > 0) & (tsal > 0)
+    np.testing.assert_allclose(tsal[on], jsal[on], rtol=2e-3, atol=3e-7)
+    assert ((jsal > 0) != (tsal > 0)).mean() < 5e-3
+    assert (jkp == tkp).mean() > 0.995
+    assert (jkp & tkp).sum() >= 0.9 * max(jkp.sum(), tkp.sum()) > 9
+    # the walk order changes with the cell, so saliencies move by float32
+    # summation order; the keypoints of the box fixture do not
+    np.testing.assert_allclose(tsal, box["tsal"], rtol=2e-3, atol=3e-7)
+    assert (tkp == box["tkp"]).mean() > 0.995
+
+
+def _nms_early_out(plan, r2, sal, okq, min_neighbors, order):
+    """K4's early-out as a plain function of a visit order: every query
+    that passed K3 takes its stencil candidates in the order `order`
+    (positions of its padded candidate row), ends at the first neighbour
+    within r whose saliency is >= its own, and is a keypoint when it finds
+    none and has counted min_neighbors neighbours."""
+    n = plan.n_valid
+    ids, ok = cg.candidates(plan, 0, n)
+    d2 = cg._pair_d2(plan, torch.arange(n), ids)[3]
+    nb = ok & (d2 > 0.0) & (d2 <= r2)
+    open_ = okq & (sal > -cg.BIG)
+    count = torch.zeros(n, dtype=torch.int64)
+    for k in order:
+        hit = open_ & nb[:, k]
+        open_ = open_ & ~(hit & (sal[ids[:, k]] >= sal))
+        count += hit & open_
+    return open_ & (count >= min_neighbors)
+
+
+@pytest.mark.parametrize("order", ["walk", "reversed", "shuffled"])
+def test_iss_nms_early_out_is_the_strict_maximum(box, order):
+    """Ending a query at its first blocking neighbour gives K4's mask in
+    any visit order, exact ties included."""
+    plan = box["plan"]
+    r2 = cg._f32_square(RADIUS)
+    n = plan.n_valid
+    rng = np.random.default_rng(3)
+    sal = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+    sal[::7] = sal[1::7][: sal[::7].shape[0]]
+    okq = torch.from_numpy(rng.random(n) < 0.8)
+    L = cg.candidates(plan, 0, n)[0].shape[1]
+    pos = {"walk": np.arange(L), "reversed": np.arange(L)[::-1],
+           "shuffled": rng.permutation(L)}[order]
+    for min_nb in (4, 1000):
+        got = _nms_early_out(plan, r2, sal, okq, min_nb, pos.tolist())
+        assert torch.equal(got, cg.iss_nms_plain(plan, r2, sal, okq, min_nb))
+    assert int(cg.iss_nms_plain(plan, r2, sal, okq, 4).sum()) > 10
