@@ -22,7 +22,10 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       range, no valid row); the bench's 65,536-point pair, one warm-up and
       three timed repeats; a 4,096-point pair through the kernels and the
       plain versions; K5, K6 and K7 checked at 262,144 points, then one
-      262,144-point pair.
+      262,144-point pair.  Keypoint-any SHOT (descriptor shot; bench.py with
+      LGR_BENCH_DESC=shot in keypoint-any mode): the 65,536-point pair once,
+      warm, K7 at D = 352 over 65,536 x 65,536 checked, a 4,096-point pair
+      through the kernels and the plain versions.
   ISS (the bench's flagship row, bench.py:159-176, 194-256, 420-438):
       the box + mound pair at 10,485,760 points per side, sampled on the
       card; radii derived on the raw pair and again after the
@@ -38,9 +41,16 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
         the shipped SHOT regime (descriptor shot, lrf gravity; bench.py with
           LGR_BENCH_DESC=shot): warm-up + 3 repeats;
         the classic masked route (feature_scale=False), FPFH and SHOT:
-          warm-up + one run each, a finite pose required.
+          warm-up + one run each, a finite pose required;
+        the unmasked route (masked_features=False), FPFH and SHOT: the
+          same, after K1's, K5's and K6's full forms were checked at its
+          shapes (1.12M rows) and its keypoints, normals and FPFH at the
+          keypoints held against the classic route's;
+        the FPFH flagship route with the GROR solver (alignment gror;
+          bench.py with LGR_BENCH_ALIGN=gror): warm-up + 3 repeats.
       A 65,536-point ISS pair through the kernels and the plain versions
-      (CPU), with FPFH and with SHOT.
+      (CPU), with FPFH, with SHOT and with FPFH + GROR (there also GROR on
+      the card and on the CPU over one exported correspondence set).
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -119,6 +129,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(result, device milliseconds) of one call of fn(): for the plain
+    versions that take seconds, whose one result is also the one compared."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def frac_off(a, b, thr=0.5) -> float:
@@ -538,7 +562,7 @@ def check_large(dev, a, b, radii):
     return [rec5, rec6, rec7]
 
 
-def register(dev, a, b, vp_a, vp_b, radii, seed, times=None):
+def register(dev, a, b, vp_a, vp_b, radii, seed, times=None, **change):
     import torch
 
     from lidar_global_registration_tpu_torch.models.flagship import (
@@ -548,7 +572,7 @@ def register(dev, a, b, vp_a, vp_b, radii, seed, times=None):
 
     # bench.py:238-256 in keypoint-any mode
     cfg = FlagshipConfig(rounds=8, hypothesis_batch=1024, use_iss=False, match_tile=4096,
-                         metric="correspondences")
+                         metric="correspondences", **change)
     A = a if torch.is_tensor(a) else torch.from_numpy(a).to(dev)
     B = torch.from_numpy(b).to(dev)
     ones = torch.ones(A.shape[0], dtype=torch.bool, device=dev)
@@ -560,6 +584,98 @@ def register(dev, a, b, vp_a, vp_b, radii, seed, times=None):
         vp_tgt=torch.from_numpy(vp_b).to(dev), cfg=cfg, return_correspondences=True,
         stage_times=times,
     )
+
+
+def any_shot_phase(dev, a, b, vp_a, vp_b, T_gt, radii):
+    """Keypoint-any SHOT on the bench's 65,536-point pair: K7 at D = 352 over
+    65,536 x 65,536 descriptors (SHOT at every row, as the route computes
+    them) against its plain version and the library yardstick; one warm-up
+    and one timed run with stage times, held to a finite pose (whether the
+    bench's rule holds is printed); a 4,096-point pair through the kernels
+    and through the plain versions.  Returns K7's record with the launches of
+    the timed 65,536-point run."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import FlagshipConfig, _shot_stage
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+    from lidar_global_registration_tpu_torch.ops.density import derive_radii
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    rn, rf = radii["normal_cell"], radii["feature"]
+    cfg = FlagshipConfig(use_iss=False, descriptor="shot")
+    ones = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+    desc = []
+    for x, vp in ((a, vp_a), (b, vp_b)):
+        X = torch.from_numpy(x).to(dev)
+        normal = cg.surface_pass(cg.plan_grid(X, ones, rn), rn, torch.from_numpy(vp).to(dev))[0]
+        desc.append(_shot_stage(X, normal, ones, X, normal, ones, rf, cfg,
+                                plan=cg.plan_grid(X, ones, rf)))
+    (fq, okq), (ft, okt) = desc
+    d2k, ik = nn_l2.nn_l2_cuda(fq, ft, okt)
+    d2p, ip = nn_l2.nn_l2_plain(fq, ft, okt)
+    # as K7's D = 352 row on the ISS keypoints: equal indices, or a d2 within
+    # 1e-6 relatively where they differ (a near tie)
+    diff = ik != ip
+    near = (d2k - d2p).abs() <= 1e-6 * d2p.abs().clamp_min(1e-30)
+    assert bool(near[diff].all()), "K7 D=352 (64k): an index differs beyond a near tie"
+    torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-6)
+    rec = dict(
+        name="nn_l2_d352_64k", route="cuda",
+        source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((d2k - d2p).abs().max()), idx_mismatch=int(diff.sum()),
+        shape=[int(fq.shape[0]), int(ft.shape[0]), int(fq.shape[1])],
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fq, ft, okt), 2),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fq, ft, okt), 1),
+        **nn_bound(fq, ft, okt, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(fq, ft, okt), 1))
+    log(f"# K7 D=352 at {fq.shape[0]}^2 ok: {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f}, "
+        f"library {rec['library_ms']:.2f}, {int(diff.sum())} index differences (near ties), "
+        f"{int(okq.sum())}/{int(okt.sum())} valid descriptors")
+    del desc, fq, ft, d2k, d2p
+
+    counters = (cg.surface_cuda, nn_l2.nn_l2_cuda)
+    a_dev = torch.from_numpy(a).to(dev)
+    register(dev, a_dev, b, vp_a, vp_b, radii, SEED, descriptor="shot")  # warm-up
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {}
+    t0 = time.perf_counter()
+    out = register(dev, a_dev + 1e-5, b, vp_a, vp_b, radii, SEED, times, descriptor="shot")
+    out["transformation"].cpu()
+    dt = time.perf_counter() - t0
+    r_err, t_err, finite = pose_error(out, T_gt)
+    conv = bool(out["converged"])
+    ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
+    log(f"# any-SHOT n={a.shape[0]}: {dt:.4f} s converged={conv} r_err={r_err:.5f} "
+        f"t_err={t_err:.4f} corr={float(out['n_correspondences']):.0f} "
+        f"inliers={int(out['inliers'])} bench rule holds={ok} "
+        f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
+    assert finite, "any-SHOT: non-finite pose"
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"# launches in the any-SHOT run: {launches}")
+    assert all(n > 0 for n in launches.values()), "a kernel of the any-SHOT path was never launched"
+    rec["launches"] = launches["nn_l2_cuda"]
+
+    sa, sb, svp_a, svp_b, sT = scene(4096)
+    sradii = derive_radii(torch.from_numpy(sa), torch.from_numpy(sb))
+    gpu_out = register(dev, sa, sb, svp_a, svp_b, sradii, SEED, descriptor="shot")
+    cpu_out = register(torch.device("cpu"), sa, sb, svp_a, svp_b, sradii, SEED,
+                       descriptor="shot")
+    (rg, tg, fg), (rc, tc, fc) = pose_error(gpu_out, sT), pose_error(cpu_out, sT)
+    share = shared_share(gpu_out, cpu_out)
+    log(f"# small any-SHOT pair n=4096: kernels r_err={rg:.5f} t_err={tg:.4f} "
+        f"converged={bool(gpu_out['converged'])}, plain r_err={rc:.5f} t_err={tc:.4f} "
+        f"converged={bool(cpu_out['converged'])}, shared mutual correspondences {share:.4f}")
+    # the two paths share K1's normals up to float32 summation order, which
+    # orient the gravity frames; a near-tied descriptor 1-NN may flip
+    assert fg and fc and share >= 0.9, share
+    assert bool(gpu_out["converged"]) == bool(cpu_out["converged"])
+    return rec
 
 
 def pose_error(out, T_gt):
@@ -650,28 +766,31 @@ def iss_records(plan, r_iss: float, suffix: str = ""):
     lens = (plan.cols[..., 1] - plan.cols[..., 0])[plan.cell_of.long()]
     stencil = int(lens.sum())
     kept = int((lens * cg.near_columns(plan, r2)).sum())
-    # K2: integer counts, exact
-    c_k, c_p = cg.iss_count_cuda(plan, r2), cg.iss_count_plain(plan, r2)
+    # K2: integer counts, exact; the reciprocal weights are the same IEEE
+    # float32 quotient in the kernel and in PyTorch, bit for bit
+    (c_k, inv_k), (c_p, inv_p) = cg.iss_count_cuda(plan, r2), cg.iss_count_plain(plan, r2)
     assert torch.equal(c_k, c_p), "K2 counts differ"
+    assert torch.equal(inv_k, inv_p), "K2 reciprocal weights differ"
     records.append(dict(
         name="iss_count" + suffix, route="cuda", source=src + "iss.cu",
-        replaces=pallas + "1322", max_abs_err=float((c_k - c_p).abs().max()),
+        replaces=pallas + "1322",
+        max_abs_err=max(float((c_k - c_p).abs().max()), float((inv_k - inv_p).abs().max())),
         ms=cuda_ms(lambda: cg.iss_count_cuda(plan, r2), 5),
         plain_ms=cuda_ms(lambda: cg.iss_count_plain(plan, r2), 1),
         **stencil_bound("iss_count", plan, c_p.sum(), tbytes(
-            plan.pts, plan.cell_of, plan.cols, c_k)), library_ms=None))
+            plan.pts, plan.cell_of, plan.cols, c_k, inv_k)), library_ms=None))
     log(f"# K2 iss_count{suffix} ok: n={n} r={r_iss:.4f} cell={plan.cell:.4f} "
-        f"mean count {float(c_p.float().mean()):.1f}")
-    s_k, ok_k, nb_k = cg.iss_saliency_cuda(plan, r2, c_p, 0.975, 0.975)
-    s_p, ok_p, nb_p = cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975)
+        f"mean count {float(c_p.float().mean()):.1f}, inv bit-equal")
+    s_k, ok_k, nb_k = cg.iss_saliency_cuda(plan, r2, inv_p, 0.975, 0.975)
+    s_p, ok_p, nb_p = cg.iss_saliency_plain(plan, r2, inv_p, 0.975, 0.975)
     err, flips = saliency_err((s_k, ok_k, nb_k), (s_p, ok_p, nb_p), r2, "iss_saliency" + suffix)
     records.append(dict(
         name="iss_saliency" + suffix, route="cuda", source=src + "iss.cu",
         replaces=pallas + "1344", max_abs_err=err, ok_flips=flips, stencil_candidates=stencil,
-        ms=cuda_ms(lambda: cg.iss_saliency_cuda(plan, r2, c_p, 0.975, 0.975), 5),
-        plain_ms=cuda_ms(lambda: cg.iss_saliency_plain(plan, r2, c_p, 0.975, 0.975), 1),
+        ms=cuda_ms(lambda: cg.iss_saliency_cuda(plan, r2, inv_p, 0.975, 0.975), 5),
+        plain_ms=cuda_ms(lambda: cg.iss_saliency_plain(plan, r2, inv_p, 0.975, 0.975), 1),
         **stencil_bound("iss_saliency", plan, nb_p.sum(), tbytes(
-            plan.pts, plan.cell_of, plan.cols, c_p, s_k, ok_k, nb_k)), library_ms=None))
+            plan.pts, plan.cell_of, plan.cols, inv_p, s_k, ok_k, nb_k)), library_ms=None))
     log(f"# K3 iss_saliency{suffix} ok: {int(ok_p.sum())} of {n} pass the gates, {flips} flips, "
         f"max_abs_err={err:.3g}; {stencil} stencil candidates")
     # K4 on one saliency input: any difference is the kernel's own
@@ -734,11 +853,14 @@ def check_iss_edges(dev):
         assert set(range(0, 11)) <= col_len, f"column lengths {sorted(col_len)[:14]}"
         keep = cg.near_columns(plan, r2)
         skipped.append(1.0 - float(keep.float().mean()))
-        count = cg.iss_count_plain(plan, r2)
-        assert torch.equal(cg.iss_count_cuda(plan, r2), count)
+        count, inv = cg.iss_count_plain(plan, r2)
+        c_k, inv_k = cg.iss_count_cuda(plan, r2)
+        assert torch.equal(c_k, count) and torch.equal(inv_k, inv), \
+            f"K2 edges: cell {cell_over_r} r"
+        assert int(count.min()) >= 1  # every query counts itself
         for g21, g32, expect in ((0.975, 0.975, None), (1e9, 1e9, True), (0.0, 0.0, False)):
-            got = cg.iss_saliency_cuda(plan, r2, count, g21, g32)
-            want = cg.iss_saliency_plain(plan, r2, count, g21, g32)
+            got = cg.iss_saliency_cuda(plan, r2, inv, g21, g32)
+            want = cg.iss_saliency_plain(plan, r2, inv, g21, g32)
             # thin or flat neighbourhoods (under 4 neighbours; points snapped
             # to one face) have l3 = 0 up to rounding, and `l3 > 0` is a coin:
             # a flip counts where the side that passed has l3 above the
@@ -797,9 +919,10 @@ def check_iss_edges(dev):
     assert skipped[0] > 0.02 and skipped[1] > 0.2 and skipped[2] > 0.5, skipped
     X1 = torch.tensor([[1.0, 2.0, 3.0]], device=dev)
     one = cg.plan_grid(X1, torch.ones(1, dtype=torch.bool, device=dev), r)
-    c1 = cg.iss_count_cuda(one, r2)
-    got = cg.iss_saliency_cuda(one, r2, c1, 0.975, 0.975)
-    want = cg.iss_saliency_plain(one, r2, c1, 0.975, 0.975)
+    c1, inv1 = cg.iss_count_cuda(one, r2)
+    assert c1.tolist() == [1] and inv1.tolist() == [1.0], "one-point plan: K2"
+    got = cg.iss_saliency_cuda(one, r2, inv1, 0.975, 0.975)
+    want = cg.iss_saliency_plain(one, r2, inv1, 0.975, 0.975)
     assert all(torch.equal(a, b) for a, b in zip(got, want)), "one-point plan: K3"
     assert torch.equal(cg.iss_nms_cuda(one, r2, got[0], torch.ones_like(got[1]), 0),
                        cg.iss_nms_plain(one, r2, got[0], torch.ones_like(got[1]), 0))
@@ -1100,6 +1223,92 @@ def check_classic_fpfh(S):
     return records
 
 
+def check_unmasked(S):
+    """K1's, K5's and K6's full forms at the unmasked ISS route's shapes
+    (flagship._unmasked_route on the source working cloud: K1 over every row
+    of the plan at max(normal cell, ISS radius), K5 and K6 over every row at
+    the feature radius), each against its plain version, which is timed in
+    the one call that is compared; then the route's values against the
+    classic masked route's: the same keypoints, the same normals at every
+    row a later stage reads, the same densities and FPFH at the keypoints."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import _compact_rows, _pad_quantum
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    src = "lidar_global_registration_tpu_torch/csrc/"
+    pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
+    radii = S["radii"]
+    sx, sv = S["sx"], S["sv"]
+    rn, rf, r_iss = radii["normal_cell"], radii["feature"], radii["iss_src"]
+    pn = cg.plan_grid(sx, sv, max(rn, r_iss))
+    pf = cg.plan_grid(sx, sv, rf)
+    r2n, r2f = cg._f32_square(rn), cg._f32_square(rf)
+    k1 = cg.surface_cuda(pn, r2n)
+    k1_p, plain_ms = timed_once(lambda: cg.surface_plain(pn, r2n))
+    records = [dict(
+        name="surface_pn", route="cuda", source=src + "surface.cu", replaces=pallas + "1241",
+        max_abs_err=surface_err(*k1, *k1_p, "K1 (working cloud, pn plan)"),
+        queries=int(pn.n_valid), ms=cuda_ms(lambda: cg.surface_cuda(pn, r2n), 10),
+        plain_ms=plain_ms,
+        **stencil_bound("surface", pn, k1_p[0][:, 7].sum(), tbytes(
+            pn.pts, pn.cell_of, pn.cols, pn.oid, *k1)), library_ms=None)]
+    log(f"# K1 full on the pn plan ok: {pn.n_valid} rows, cell {pn.cell:.4f} for r {rn:.4f}, "
+        f"{records[-1]['ms']:.4f} ms, plain {plain_ms:.0f} ms")
+
+    # the route's side stage against the classic route's
+    out = cg.surface_iss_cells(pn, rn, r_iss, S["vp_a"])
+    normal_m, kp_m, dens_m, _sal = cg.surface_iss_masked(pn, pf, rn, r_iss, S["vp_a"])
+    need = cg.point_need(pf, kp_m, 2)
+    assert torch.equal(out["kp"], kp_m), "unmasked route: keypoints differ from the classic route's"
+    assert torch.equal(out["normal"][need], normal_m[need]), "unmasked route: normals differ"
+    assert torch.equal(out["density"][kp_m], dens_m[kp_m]), "unmasked route: densities differ"
+
+    pfn = cg.set_normals(pf, out["normal"])
+    cen = cg.aabb_centre(pfn)
+    sp_k, c_k = cg.spfh_cuda(pfn, r2f, cen)
+    (sp_p, c_p), plain_ms = timed_once(lambda: cg.spfh_plain(pfn, r2f, cen))
+    f5 = frac_off(sp_k, sp_p)
+    assert torch.equal(c_k, c_p) and f5 < 1e-3, f"K5 full (working cloud): {f5:.2e} off by > 0.5"
+    records.append(dict(
+        name="spfh_work_full", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
+        max_abs_err=float((sp_k - sp_p).abs().max()), queries=int(pfn.n_valid),
+        ms=cuda_ms(lambda: cg.spfh_cuda(pfn, r2f, cen), 3), plain_ms=plain_ms,
+        **stencil_bound("spfh", pfn, c_p.sum(), tbytes(
+            pfn.pts, pfn.nrm, pfn.cell_of, pfn.cols, sp_k, c_k)), library_ms=None))
+    log(f"# K5 full at {pfn.n_valid} rows ok: {records[-1]['ms']:.3f} ms, plain {plain_ms:.0f} ms, "
+        f"frac_off={f5:.2e}")
+    f_k, k_k = cg.combine_cuda(pfn, r2f, sp_k)
+    (f_p, k_p), plain_ms = timed_once(lambda: cg.combine_plain(pfn, r2f, sp_k))
+    f6 = frac_off(f_k, f_p)
+    assert torch.equal(k_k, k_p), "K6 full (working cloud) neighbour counts differ"
+    assert f6 < 1e-3 and float((f_k - f_p).abs().median()) < 1e-3, f"K6 full: {f6:.2e}"
+    records.append(dict(
+        name="combine_work_full", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1608",
+        max_abs_err=float((f_k - f_p).abs().max()), queries=int(pfn.n_valid),
+        ms=cuda_ms(lambda: cg.combine_cuda(pfn, r2f, sp_k), 3), plain_ms=plain_ms,
+        **stencil_bound("combine", pfn, k_p.sum(), tbytes(
+            pfn.pts, pfn.cell_of, pfn.cols, sp_k, f_k, k_k)), library_ms=None))
+    log(f"# K6 full at {pfn.n_valid} rows ok: {records[-1]['ms']:.3f} ms, plain {plain_ms:.0f} ms, "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}")
+
+    # FPFH at the keypoints: every row in full against the classic route's
+    # compacted pass (the same K5 rows; K6 one thread a query against one
+    # warp a query, whose sums run in the same order)
+    feat_u, fv_u = cg.fpfh_pass(pfn, rf)
+    n = int(kp_m.sum())
+    sj = _compact_rows(kp_m, n, _pad_quantum(n))
+    feat_c, fv_c = cg.fpfh_pass(cg.set_normals(pf, normal_m), rf, kp=kp_m, kp_rows=sj)
+    rows = sj[:n]
+    assert torch.equal(fv_u[rows], fv_c[:n]), "unmasked route: FPFH validity differs"
+    err = float((feat_u[rows] - feat_c[:n]).abs().max())
+    # histograms that sum to 100 a block: 1e-4 is a few float32 roundings
+    assert err <= 1e-4, f"unmasked route: FPFH at the keypoints differs by {err:.3g}"
+    log(f"# unmasked route = classic route at {n} keypoints: masks equal, normals equal at "
+        f"{int(need.sum())} needed rows, FPFH max abs diff {err:.3g}")
+    return records
+
+
 def register_iss(S, cfg, seed, av=None, times=None):
     """pre-downsample + register_pair_staged on an ISS route (bench.py:275-290)."""
     import torch
@@ -1148,8 +1357,8 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     """One warm-up (a first run pays for the allocator's growth: on an
     H100 the classic SHOT route took 0.6-0.8 s cold, 0.28-0.34 s warm) and
     `repeats` timed runs of pre-downsample + register_pair_staged under
-    `cfg`, with the launch counters set to 0 just before and read just
-    after; every counter must have risen.  rule: hold each run to the
+    `cfg`, with the launch counters set to 0 just before the timed runs and
+    read just after; every counter must have risen.  rule: hold each run to the
     bench's success rule, else to a finite pose.  Returns the launch
     counts."""
     import torch
@@ -1157,11 +1366,11 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     from lidar_global_registration_tpu_torch.types import SEED
 
     dev = S["a"].device
-    for c in counters:
-        c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     register_iss(S, cfg, SEED)  # warm-up
     torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
     for r in range(repeats):
         av = S["a"] + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
         torch.cuda.synchronize()
@@ -1175,7 +1384,8 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
         ok = conv and r_err < R_ERR_MAX and t_err < S["radii"]["thr"] and finite
         log(f"# {label} repeat {r} n={S['a'].shape[0]}: {dt:.4f} s converged={conv} "
             f"r_err={r_err:.5f} t_err={t_err:.4f} corr={float(out['n_correspondences']):.0f} "
-            f"inliers={int(out['inliers'])} metric={float(out['metric']):.4f} ok={ok}")
+            f"inliers={int(out['inliers'])} metric={float(out['metric']):.4f} "
+            f"iterations={float(out['iterations']):.0f} ok={ok}")
         log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
         assert finite, f"{label} repeat {r}: non-finite pose"
         assert ok or not rule, f"{label} repeat {r} failed the bench's success rule"
@@ -1206,7 +1416,8 @@ def iss_phase(dev):
         f"{time.perf_counter() - t0:.2f} s; raw {S['raw']}")
     log(f"# pre-downsample: {N_ISS} -> {sx.shape[0]} rows/side ({int(sv.sum())}/{int(tv.sum())} "
         f"valid, voxel {S['vox'][0]:.4f}/{S['vox'][1]:.4f}); radii {radii}")
-    records = check_iss_kernels(sx, sv, radii) + check_shot_kernels(S) + check_classic_fpfh(S)
+    records = (check_iss_kernels(sx, sv, radii) + check_shot_kernels(S) + check_classic_fpfh(S)
+               + check_unmasked(S))
 
     iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
     launches = {}
@@ -1232,6 +1443,17 @@ def iss_phase(dev):
         S, iss_cfg(feature_scale=False, **SHOT_CFG), (cg.surface_at_cuda, *iss_k,
                                                       nn_l2.nn_l2_cuda),
         "classic masked SHOT", 1, rule=False)
+    launches["unmasked_fpfh"] = iss_runs(
+        S, iss_cfg(masked_features=False), (cg.surface_cuda, *iss_k, cg.spfh_cuda,
+                                            cg.combine_cuda, nn_l2.nn_l2_cuda),
+        "unmasked FPFH", 1, rule=False)
+    launches["unmasked_shot"] = iss_runs(
+        S, iss_cfg(masked_features=False, **SHOT_CFG), (cg.surface_cuda, *iss_k,
+                                                        nn_l2.nn_l2_cuda),
+        "unmasked SHOT", 1, rule=False)
+    launches["gror"] = iss_runs(S, iss_cfg(alignment="gror"),
+                                (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda,
+                                 nn_l2.nn_l2_cuda), "GROR", REPEATS, rule=True)
     return records, launches
 
 
@@ -1248,6 +1470,25 @@ def iss_small_pair(dev, label: str, **change):
     for d in (dev, cpu):
         S = {k: v.to(d) if torch.is_tensor(v) else v for k, v in S0.items()}
         outs.append(register_iss(S, iss_cfg(**change), SEED))
+    if change.get("alignment") == "gror":
+        # GROR draws nothing: on ONE correspondence set (the kernels' path's)
+        # the card and the CPU must give the same counts, and the same pose
+        # up to float32 summation order in the Umeyama refit
+        from lidar_global_registration_tpu_torch.models.gror import gror_solve
+
+        rows, match, _thr, cv = (x.cpu() for x in outs[0]["correspondences"])
+        p, q = S0["sx"][rows], S0["tx"][match]
+        res = S0["radii"]["thr"]
+        g_dev = gror_solve(p.to(dev), q.to(dev), cv.to(dev), res)
+        g_cpu = gror_solve(p, q, cv, res)
+        for k in ("inliers", "iterations", "converged", "n_correspondences"):
+            assert g_dev[k] == g_cpu[k], f"GROR on one set, card against CPU: {k}"
+        assert g_dev["inliers"] == int(outs[0]["inliers"])
+        torch.testing.assert_close(g_dev["transformation"].cpu(), g_cpu["transformation"],
+                                   atol=1e-4, rtol=0)
+        log(f"# GROR on the {int(cv.sum())} correspondences of the kernels' path, card and CPU: "
+            f"inliers {g_dev['inliers']}, rounds {g_dev['iterations']}, poses within 1e-4; "
+            f"the plain path's own set gives {int(outs[1]['inliers'])} inliers")
     T_gt = S0["T_gt"].numpy()
     (rg, tg, _), (rc, tc, _) = (pose_error(o, T_gt) for o in outs)
     share = shared_share(*outs)
@@ -1346,6 +1587,9 @@ def main() -> int:
     assert bool(gpu_out["converged"]) and bool(cpu_out["converged"])
     assert rg < R_ERR_MAX and rc < R_ERR_MAX and share >= 0.9
 
+    # keypoint-any SHOT on the same 65,536-point pair
+    records.append(any_shot_phase(dev, a, b, vp_a, vp_b, T_gt, radii))
+
     # one large pair: completes with a finite pose (no reference row at this size)
     la, lb, lvp_a, lvp_b, lT = scene(N_LARGE)
     t0 = time.perf_counter()
@@ -1393,13 +1637,17 @@ def main() -> int:
            "iss_saliency_pn": ("masked_fpfh", "iss_saliency_cuda"),
            "iss_nms_pn": ("masked_fpfh", "iss_nms_cuda"),
            "spfh_at_classic": ("masked_fpfh", "spfh_at_cuda"),
-           "combine_at_classic": ("masked_fpfh", "combine_at_cuda")}
+           "combine_at_classic": ("masked_fpfh", "combine_at_cuda"),
+           "surface_pn": ("unmasked_fpfh", "surface_cuda"),
+           "spfh_work_full": ("unmasked_fpfh", "spfh_cuda"),
+           "combine_work_full": ("unmasked_fpfh", "combine_cuda")}
     for rec in iss_records:
         route, key = own.get(rec["name"], ("fpfh", rec["name"] + "_cuda"))
         rec["launches"] = iss_launches[route][key]
     records += iss_records
     iss_small_pair(dev, "ISS")
     iss_small_pair(dev, "SHOT", **SHOT_CFG)
+    iss_small_pair(dev, "GROR", alignment="gror")
 
     log(f"{gpu}")
     log(json.dumps({"kernels": records}))

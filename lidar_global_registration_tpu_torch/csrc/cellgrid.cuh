@@ -19,9 +19,10 @@ constexpr float kBig = 3.0e38f;
 constexpr double kPi = 3.14159265358979323846;
 
 // Visit every sorted point of the 27-cell stencil of `cell`, column by
-// column (the radius test is the visitor's).  One dependent candidate load
-// in flight per thread: K2 and K6's full pass still walk this way, and can
-// move to walk_near (below) in their own change.
+// column (the radius test is the visitor's).  The candidate loop is plain,
+// so the compiler unrolls it and batches its loads.  K2 and K6's full pass
+// walk this way: for K2, walk_near (below) with every column measured 0.3 %
+// slower on the H100; K6's full pass has not been measured on it.
 template <class Visit>
 __device__ __forceinline__ void walk_stencil(const int2* __restrict__ cols, int cell,
                                              Visit&& visit) {

@@ -11,8 +11,9 @@
 // d2 > 0 excludes it.
 //
 // Three launches, because every pass needs its predecessor's result at
-// every candidate: K3 weights each neighbour by 1 / (its K2 count), K4
-// compares the query's saliency with each neighbour's K3 saliency.
+// every candidate: K3 weights each neighbour by 1 / (its K2 count), which K2
+// also writes out once per point, K4 compares the query's saliency with each
+// neighbour's K3 saliency.
 //
 // Bound on the H100 by the warps' issue rate with part of each warp idle,
 // not by bytes and not by load latency: a thread tests every candidate of its
@@ -30,9 +31,19 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// K2.  The scan alone: a distance test is ~10 of a candidate's ~13
+// instructions, so a candidate row shared by two queries of a thread cannot
+// save much, and measured on the H100 (1.12M queries, cell = r and 1.545 r)
+// it loses: a thread owning two consecutive slots (one walk when they share
+// a cell) took 1.9x / 1.65x the time, per-cell pairs from a list 1.5x /
+// 1.33x before the list's own cost; lgr::walk_near with every column, which
+// K3 gained 2-3 % from, measured 0.3 % slower here.  What K2 adds is the
+// second output: 1 / max(count, 1) once per point, where the count is in a
+// register, for K3 to read at every hit.
 __global__ void __launch_bounds__(kThreads)
     iss_count_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                     const int2* __restrict__ cols, int n, float r2, int* __restrict__ count) {
+                     const int2* __restrict__ cols, int n, float r2, int* __restrict__ count,
+                     float* __restrict__ inv) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float4 q = pts[i];
@@ -43,6 +54,7 @@ __global__ void __launch_bounds__(kThreads)
     if (dx * dx + dy * dy + dz * dz <= r2) ++c;  // self included (d2 = 0)
   });
   count[i] = c;
+  inv[i] = 1.f / fmaxf(static_cast<float>(c), 1.f);  // the IEEE float32 quotient
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -59,9 +71,17 @@ constexpr unsigned kFull = 0xffffffffu;
 // a lane's hits in shared memory to fold them with the warp converged costs
 // more than the idle lanes it saves (30-40 % slower).  About half the time
 // is the fold, where a third of a warp's lanes hit on a step.
+//
+// The weight of a hit is read from K2's `inv`, which takes the convert,
+// clamp and divide out of every hit, with the same bits: 18 % faster where
+// the cell is the radius (a quarter of the candidates hit), 7 % SLOWER on a
+// plan whose cell is 1.545 radii (a tenth hit), where the two forms cross at
+// 1.4 radii; the cause is not known.  With `inv` read: the fold behind an
+// empty asm statement measured the same, a warp vote that skips steps no
+// lane hits lost 27 %, the weight loaded ahead of the test 19 %.
 __global__ void __launch_bounds__(kThreads)
     iss_saliency_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                        const int2* __restrict__ cols, const int* __restrict__ count, int n,
+                        const int2* __restrict__ cols, const float* __restrict__ inv, int n,
                         float r2, float gamma21, float gamma32, float* __restrict__ sal,
                         unsigned char* __restrict__ ok, int* __restrict__ nnb) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -78,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
           const float dx = p.x - q.x, dy = p.y - q.y, dz = p.z - q.z;
           const float d2 = dx * dx + dy * dy + dz * dz;
           if (!(d2 > 0.f) || !(d2 <= r2)) continue;
-          const float w = 1.f / fmaxf(static_cast<float>(__ldg(count + j)), 1.f);
+          const float w = __ldg(inv + j);
           const float wdx = w * dx, wdy = w * dy, wdz = w * dz;
           ws += w;
           sxx += wdx * dx;
@@ -211,23 +231,24 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 }  // namespace
 
 // pts f32[N,4] sorted xyz; cell_of i32[n]; cols i32[n_cells,9,2]; count
-// i32[n] points within r, self included.
+// i32[n] points within r, self included; inv f32[n] = 1 / max(count, 1).
 extern "C" int lgr_iss_count(const void* pts, const void* cell_of, const void* cols, int n,
-                             float r2, void* count, void* stream) {
+                             float r2, void* count, void* inv, void* stream) {
   iss_count_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), n, r2, static_cast<int*>(count));
+      static_cast<const int2*>(cols), n, r2, static_cast<int*>(count),
+      static_cast<float*>(inv));
   return static_cast<int>(cudaGetLastError());
 }
 
-// count i32[n] from lgr_iss_count; sal f32[n]; ok bool[n]; nnb i32[n]
-// neighbours at 0 < d2 <= r2.
+// inv f32[n] of lgr_iss_count; sal f32[n]; ok bool[n]; nnb i32[n] neighbours
+// at 0 < d2 <= r2.
 extern "C" int lgr_iss_saliency(const void* pts, const void* cell_of, const void* cols,
-                                const void* count, int n, float r2, float gamma21,
+                                const void* inv, int n, float r2, float gamma21,
                                 float gamma32, void* sal, void* ok, void* nnb, void* stream) {
   iss_saliency_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const int*>(count), n, r2, gamma21, gamma32,
+      static_cast<const int2*>(cols), static_cast<const float*>(inv), n, r2, gamma21, gamma32,
       static_cast<float*>(sal), static_cast<unsigned char*>(ok), static_cast<int*>(nnb));
   return static_cast<int>(cudaGetLastError());
 }

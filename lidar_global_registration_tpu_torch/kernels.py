@@ -40,9 +40,9 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 SIGNATURES = {
     # pts, cell_of, cols, oid, slots (or 0), m, r2, out8, nn_d, nn_id, stream
     "lgr_surface": (_P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
-    # pts, cell_of, cols, n, r2, count, stream
-    "lgr_iss_count": (_P, _P, _P, _I, _F, _P, _P),
-    # pts, cell_of, cols, count, n, r2, gamma21, gamma32, sal, ok, nnb, stream
+    # pts, cell_of, cols, n, r2, count, inv, stream
+    "lgr_iss_count": (_P, _P, _P, _I, _F, _P, _P, _P),
+    # pts, cell_of, cols, inv, n, r2, gamma21, gamma32, sal, ok, nnb, stream
     "lgr_iss_saliency": (_P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
     # pts, cell_of, cols, sal, ok, n, r2, min_nb, origin, cell, kp, stream
     "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _D, _P, _P),

@@ -30,13 +30,27 @@ the keypoints; SHOT runs at the compacted keypoints over the whole
 working cloud.  Matching is compacted (cluster gate or mutual), or, when
 the keypoints are no minority of the rows, mutual 1-NN over full rows.
 
-The keypoint-any route (`use_iss=False`; flagship.py:1795-1836, 1857-1872,
-1940-1957): K1 normals + density, K5 + K6 over every point, mutual K7 1-NN.
+The unmasked ISS route (`masked_features=False`; flagship.py:1090-1110,
+1172-1189, 1839-1855): per side ONE plan at max(normal cell, ISS radius)
+for K1 over every point and K2-K4 (cellgrid.surface_iss_cells), FPFH over
+every point masked to the keypoints (or SHOT at the compacted keypoints),
+then the same matching region.  The feature-scale route needs the masked
+features, so it is not taken.
 
-Other settings raise NotImplementedError naming the ROADMAP.md item that
-ports them.  There are no learned weights: what carries over from the JAX
-package is its config (`config_from_jax`) and the radii
-(ops/density.derive_radii).
+The keypoint-any route (`use_iss=False`; flagship.py:1795-1836, 1857-1872,
+1940-1957): K1 normals + density, K5 + K6 over every point, mutual K7 1-NN;
+with descriptor="shot" (flagship.py:1104-1107, 1846-1852, 1929-1950) no
+FPFH, SHOT over every row on the plan at the feature radius.
+
+The solver stage is the prerejective RANSAC above or, with
+alignment="gror", GROR over the whole correspondence set (models/gror.py;
+flagship.py:802-829, 1951-1957).
+
+Still unported, each raising NotImplementedError that names its ROADMAP.md
+item (Queue 1): the staged pyramid, the bf16 matcher, the grid-hash FPFH
+of use_cell_fpfh=False, lrf="gt".  There are no learned weights: what
+carries over from the JAX package is its config (`config_from_jax`) and
+the radii (ops/density.derive_radii).
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lidar_global_registration_tpu_torch.models.gror import gror_solve
 from lidar_global_registration_tpu_torch.models.pyramid import _cluster_distances
 from lidar_global_registration_tpu_torch.models.ransac import draw_hypotheses
 from lidar_global_registration_tpu_torch.ops import cellgrid, matchers
@@ -70,27 +85,21 @@ MIN_NR_INLIERS = 10
 MIN_NR_FINAL_INLIERS = 20
 MIN_INLIER_RATE = 0.15
 
-# (field, value the port supports, ROADMAP.md item that ports the others)
+# (field, value the port supports, ROADMAP.md Queue 1 item that ports the others)
 _SLICE_ONLY = (
-    ("alignment", "ransac", "'GROR'"),
-    ("pyramid", False, "'staged pyramid'"),
-    ("bf16_matching", False, "'host-path ops' (matcher variants)"),
-    ("use_cell_fpfh", True, "'host-path ops' (grid-hash neighbour search)"),
-)
-# the same, for the fields that only the ISS route reads
-_ISS_ONLY = (
-    ("masked_features", True, "'masked features' (the unmasked ISS route)"),
-)
-# and for the keypoint-any route
-_ANY_ONLY = (
-    ("descriptor", "fpfh", "'SHOT' (keypoint-any SHOT)"),
+    ("pyramid", False, "'Staged pyramid'"),
+    ("bf16_matching", False, "'Host-path ops' (the bf16 matcher)"),
+    ("use_cell_fpfh", True, "'Host-path ops' (the grid-hash FPFH, ops/fpfh.py)"),
 )
 
 
 @dataclass(frozen=True)
 class FlagshipConfig:
     """The fields of the JAX FlagshipConfig the ported routes read, with
-    the JAX defaults."""
+    the JAX defaults.  Every setting of use_iss, masked_features,
+    feature_scale, cluster_matching, descriptor and alignment ("ransac" |
+    "gror") runs; pyramid, bf16_matching, use_cell_fpfh=False and lrf="gt"
+    raise NotImplementedError (ROADMAP.md Queue 1)."""
 
     rounds: int = 8
     hypothesis_batch: int = 512
@@ -125,17 +134,17 @@ class FlagshipConfig:
     pyramid: bool = False
 
     def __post_init__(self):
-        checks = _SLICE_ONLY + (_ISS_ONLY if self.use_iss else _ANY_ONLY)
-        for field, value, item in checks:
+        for field, value, item in _SLICE_ONLY:
             if getattr(self, field) != value:
                 raise NotImplementedError(
                     f"{field}={getattr(self, field)!r} takes a route that is not "
-                    f"ported yet: see ROADMAP.md, {item}"
+                    f"ported yet: see ROADMAP.md, Queue 1, {item}"
                 )
         if self.descriptor == "shot" and self.lrf == "gt":
             raise NotImplementedError(
-                "lrf='gt' (ground-truth frames) is not ported: see ROADMAP.md, 'SHOT' "
-                "(the staged envelope never sends it here, pipeline.py:164-166)"
+                "lrf='gt' (ground-truth frames) is not ported: see ROADMAP.md, Queue 1, "
+                "'Host-path ops' (the staged envelope never sends it here, "
+                "pipeline.py:164-166)"
             )
 
 
@@ -341,6 +350,28 @@ def _corr_export(j, keep, thr, M: int):
     correspondence set, valid rows first in row order (flagship._corr_export)."""
     sel = _subset_sel(keep, M)
     return sel, j[sel], thr[sel], keep[sel]
+
+
+def _corr_subset(p, q, cvalid, M: int):
+    """ransac_solve's compaction, alone, for the GROR solver stage
+    (flagship._corr_subset)."""
+    sel = _subset_sel(cvalid, M)
+    return p[sel], q[sel], cvalid[sel]
+
+
+def _gror_stage(p, q, cvalid, distance_thr: float, cfg: FlagshipConfig):
+    """The GROR solver stage (flagship._gror_stage; alignment: gror,
+    alignment.cpp:21-35): the graph-reliability search with resolution =
+    distance_thr over the correspondence set compacted to its FULL realised
+    count (padded to a count quantum), never a subsample: the reference
+    ranks its top 800 nodes over all correspondences (ia_gror.hpp:126-194),
+    and gror_solve's degree pass is chunked by rows.  Returns
+    ransac_solve's keys."""
+    n = int(cvalid.sum())
+    M = min(_pad_quantum(max(n, 1)), p.shape[0])
+    if M < p.shape[0]:
+        p, q, cvalid = _corr_subset(p, q, cvalid, M)
+    return gror_solve(p, q, cvalid, float(distance_thr))
 
 
 # ---------------------------------------------------------------------------
@@ -562,8 +593,12 @@ def _match_region(src, tgt, fq, fq_valid, ft, ft_valid, ec_q, ec_t, dens_s, dens
 
 def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
     """Keypoint-any: surface + FPFH over every point, mutual 1-NN
-    (flagship.py:1795-1836)."""
+    (flagship.py:1795-1836); in shot mode (flagship.py:1104-1107,
+    1846-1852) the surface alone, every valid row a keypoint, and the
+    matching region computes SHOT over them on the plan at the feature
+    radius."""
     normal_cell, feature_radius = radii[0], radii[5]
+    shot_mode = cfg.descriptor == "shot"
     plans = [cellgrid.plan_grid(x, v, c)
              for x, v in ((src_xyz, src_valid), (tgt_xyz, tgt_valid))
              for c in (normal_cell, feature_radius)]
@@ -572,13 +607,16 @@ def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
     def side(plan_n, plan_f, valid, vp, which):
         normal, _curv, density, _eig, _ok = cellgrid.surface_pass(plan_n, normal_cell, vp)
         _t(f"side_{which}")
+        if shot_mode:
+            return normal, density, None, valid
         feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(plan_f, normal), feature_radius)
         _t(f"fpfh_{which}")
-        return density, feat, fv & valid
+        return normal, density, feat, fv & valid
 
-    dens_s, fq, fq_valid = side(plans[0], plans[1], src_valid, vp_src, "src")
-    dens_t, ft, ft_valid = side(plans[2], plans[3], tgt_valid, vp_tgt, "tgt")
-    return _match_region((src_xyz, src_valid, None, None), (tgt_xyz, tgt_valid, None, None),
+    src_normal, dens_s, fq, fq_valid = side(plans[0], plans[1], src_valid, vp_src, "src")
+    tgt_normal, dens_t, ft, ft_valid = side(plans[2], plans[3], tgt_valid, vp_tgt, "tgt")
+    return _match_region((src_xyz, src_valid, src_normal, plans[1]),
+                         (tgt_xyz, tgt_valid, tgt_normal, plans[3]),
                          fq, fq_valid, ft, ft_valid, None, None, dens_s, dens_t, radii, cfg, _t)
 
 
@@ -712,12 +750,47 @@ def _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt,
                          ec_q, ec_t, dens_s, dens_t, radii, cfg, _t)
 
 
+def _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
+    """The unmasked ISS route (`masked_features=False`; flagship.py:
+    1090-1110, 1172-1189, 1839-1855, then the matching region): per side
+    K1 over every point and K2-K4 on ONE plan at max(normal cell, ISS
+    radius) (cellgrid.surface_iss_cells), then FPFH over every point,
+    valid at the keypoints only, or nothing yet for SHOT.  The same values
+    at every row a later stage reads as the classic masked route."""
+    (normal_cell, _dens_s, _dens_t, iss_radius_src, iss_radius_tgt, feature_radius,
+     _thr) = radii
+    shot_mode = cfg.descriptor == "shot"
+
+    def side(xyz, valid, iss_radius, vp, which):
+        pn = cellgrid.plan_grid(xyz, valid, max(normal_cell, iss_radius))
+        pf = cellgrid.plan_grid(xyz, valid, feature_radius)
+        out = cellgrid.surface_iss_cells(pn, normal_cell, iss_radius, vp)
+        _t(f"side_{which}")
+        if shot_mode:
+            # SHOT runs at the compacted keypoint rows, in the matching region
+            return out, pf, None, valid & out["kp"]
+        feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(pf, out["normal"]), feature_radius)
+        _t(f"fpfh_{which}")
+        return out, pf, feat, fv & out["kp"]
+
+    s, pf_s, fq, fq_valid = side(src_xyz, src_valid, iss_radius_src, vp_src, "src")
+    t, pf_t, ft, ft_valid = side(tgt_xyz, tgt_valid, iss_radius_tgt, vp_tgt, "tgt")
+    return _match_region((src_xyz, src_valid, s["normal"], pf_s),
+                         (tgt_xyz, tgt_valid, t["normal"], pf_t), fq, fq_valid, ft, ft_valid,
+                         None, None, s["density"], t["density"], radii, cfg, _t)
+
+
 def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
-    """The ISS routes (flagship.py:1191-1206): the feature-scale route when
-    cluster matching and feature_scale are on and the feature-scale voxel
-    is at least 0.9 x the larger density (a silent pre-gate in the JAX
-    package too), else, or when one of its data gates fails (with the JAX
-    package's notice), the classic masked route."""
+    """The ISS routes (flagship.py:1191-1206).  With masked features: the
+    feature-scale route when cluster matching and feature_scale are on and
+    the feature-scale voxel is at least 0.9 x the larger density (a silent
+    pre-gate in the JAX package too), else, or when one of its data gates
+    fails (with the JAX package's notice), the classic masked route.
+    Without: the unmasked route (the feature-scale route needs the masked
+    features and is skipped silently, as in the JAX package)."""
+    if not cfg.masked_features:
+        return _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt,
+                               cfg, _t)
     density = max(radii[1], radii[2])
     voxel_f = float(math.sqrt(math.pi * radii[5]**2 / FEATURE_NR_POINTS))
     if cfg.cluster_matching and cfg.feature_scale and voxel_f >= 0.9 * density:
@@ -740,7 +813,9 @@ def register_pair_staged(
 ):
     """Register one padded pair on the tensors' device (the JAX
     register_pair_staged; cfg.use_iss picks the ISS or the keypoint-any
-    route).  `generator` (on the same device) drives the RANSAC draws.
+    route).  `generator` (on the same device) drives the RANSAC draws; the
+    GROR solver (cfg.alignment = "gror") draws nothing and returns host
+    values beside its transformation tensor.
     When `stage_times` is a dict, each stage is synchronised and its wall
     seconds added there under the JAX package's LGR_STAGE_TIMING labels.
     Returns the JAX result dict (transformation, metric, inliers,
@@ -777,8 +852,12 @@ def register_pair_staged(
                                      distance_thr))
     route = _iss_route if cfg.use_iss else _any_route
     j, keep, thr = route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
-    res = ransac_solve(src_xyz, tgt_xyz[j], thr, keep, generator, cfg)
-    _t("ransac")
+    if cfg.alignment == "gror":
+        res = _gror_stage(src_xyz, tgt_xyz[j], keep, radii[6], cfg)
+        _t("gror")
+    else:
+        res = ransac_solve(src_xyz, tgt_xyz[j], thr, keep, generator, cfg)
+        _t("ransac")
     if return_correspondences:
         n_c = int(keep.sum())
         res["correspondences"] = _corr_export(

@@ -481,22 +481,24 @@ def _sorted_chunks(plan: GridPlan):
         yield a, b, sl, ids, ok
 
 
-def iss_count_plain(plan: GridPlan, r2: float) -> torch.Tensor:
+def iss_count_plain(plan: GridPlan, r2: float):
     """Plain version of csrc/iss.cu `iss_count_kernel` (_iss_count_cell):
-    per sorted query the points within r, self included.  i32[n]."""
+    per sorted query the points within r, self included, and K3's weight
+    of the point, its reciprocal.  Returns (count i32[n], inv f32[n] =
+    1 / max(count, 1), the float32 quotient)."""
     count = torch.zeros((plan.n_valid,), dtype=torch.int32, device=plan.pts.device)
     for a, b, sl, ids, ok in _sorted_chunks(plan):
         d2 = _pair_d2(plan, sl, ids)[3]
         count[a:b] = (ok & (d2 <= r2)).sum(1).to(torch.int32)
-    return count
+    return count, 1.0 / count.to(torch.float32).clamp_min(1.0)
 
 
-def iss_saliency_plain(plan: GridPlan, r2: float, count: torch.Tensor,
+def iss_saliency_plain(plan: GridPlan, r2: float, inv: torch.Tensor,
                        gamma21: float, gamma32: float):
     """Plain version of csrc/iss.cu `iss_saliency_kernel`
     (_iss_saliency_cell): the scatter sum w (c - q)(c - q)^T / sum w over
     the neighbours within r (self excluded by d2 > 0), each weighted by
-    1 / its K2 count; eigenvalues l3 <= l2 <= l1.  A query passes where
+    `inv`, 1 / its K2 count; eigenvalues l3 <= l2 <= l1.  A query passes where
     l2 / l1 < gamma21, l3 / l2 < gamma32 and l3 > 0.  Returns (saliency
     f32[n] = l3 where it passes else 0, ok bool[n], neighbours i32[n])."""
     dev = plan.pts.device
@@ -507,7 +509,7 @@ def iss_saliency_plain(plan: GridPlan, r2: float, count: torch.Tensor,
     for a, b, sl, ids, ok in _sorted_chunks(plan):
         dx, dy, dz, d2 = _pair_d2(plan, sl, ids)
         nb = ok & (d2 > 0.0) & (d2 <= r2)
-        w = torch.where(nb, 1.0 / count[ids].to(torch.float32).clamp_min(1.0), 0.0)
+        w = torch.where(nb, inv[ids], 0.0)
         ws = w.sum(1)
         wdx, wdy, wdz = w * dx, w * dy, w * dz
         wsafe = ws.clamp_min(1e-30)
@@ -574,23 +576,25 @@ def near_columns(plan: GridPlan, r2: float) -> torch.Tensor:
     return (gx * gx + gy * gy <= lim).reshape(-1, 9)
 
 
-def iss_count_cuda(plan: GridPlan, r2: float) -> torch.Tensor:
+def iss_count_cuda(plan: GridPlan, r2: float):
     """K2 · csrc/iss.cu `iss_count_kernel`: same contract as iss_count_plain."""
     n = plan.n_valid
     count = torch.empty((n,), dtype=torch.int32, device=plan.pts.device)
+    inv = torch.empty((n,), dtype=torch.float32, device=plan.pts.device)
     if n == 0:
-        return count
+        return count, inv
     _check_plan(plan)
     kernels.launch("lgr_iss_count", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-                   plan.cols.data_ptr(), n, r2, count.data_ptr(), _stream(plan))
+                   plan.cols.data_ptr(), n, r2, count.data_ptr(), inv.data_ptr(),
+                   _stream(plan))
     iss_count_cuda.launches += 1
-    return count
+    return count, inv
 
 
 iss_count_cuda.launches = 0
 
 
-def iss_saliency_cuda(plan: GridPlan, r2: float, count: torch.Tensor,
+def iss_saliency_cuda(plan: GridPlan, r2: float, inv: torch.Tensor,
                       gamma21: float, gamma32: float):
     """K3 · csrc/iss.cu `iss_saliency_kernel`: same contract as
     iss_saliency_plain."""
@@ -602,9 +606,9 @@ def iss_saliency_cuda(plan: GridPlan, r2: float, count: torch.Tensor,
     if n == 0:
         return sal, okq, nnb
     _check_plan(plan)
-    kernels.check(count, torch.int32, (n,), "count")
+    kernels.check(inv, torch.float32, (n,), "inv")
     kernels.launch("lgr_iss_saliency", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-                   plan.cols.data_ptr(), count.data_ptr(), n, r2, gamma21, gamma32,
+                   plan.cols.data_ptr(), inv.data_ptr(), n, r2, gamma21, gamma32,
                    sal.data_ptr(), okq.data_ptr(), nnb.data_ptr(), _stream(plan))
     iss_saliency_cuda.launches += 1
     return sal, okq, nnb
@@ -647,12 +651,12 @@ def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
     input order, False / 0 at invalid rows."""
     r2 = _f32_square(iss_radius)
     if plan.pts.is_cuda:
-        count = iss_count_cuda(plan, r2)
-        sal, okq, _nnb = iss_saliency_cuda(plan, r2, count, gamma21, gamma32)
+        _count, inv = iss_count_cuda(plan, r2)
+        sal, okq, _nnb = iss_saliency_cuda(plan, r2, inv, gamma21, gamma32)
         kp = iss_nms_cuda(plan, r2, sal, okq, min_neighbors)
     else:
-        count = iss_count_plain(plan, r2)
-        sal, okq, _nnb = iss_saliency_plain(plan, r2, count, gamma21, gamma32)
+        _count, inv = iss_count_plain(plan, r2)
+        sal, okq, _nnb = iss_saliency_plain(plan, r2, inv, gamma21, gamma32)
         kp = iss_nms_plain(plan, r2, sal, okq, min_neighbors)
     return _unsort(plan, kp, fill=False) & plan.valid, _unsort(plan, sal)
 
@@ -999,6 +1003,18 @@ def surface_iss_masked(plan_n: GridPlan, plan_f: GridPlan, normal_radius: float,
     need = point_need(plan_f, kp, 1 if shot else 2)
     normal, _curv, density, _eig, _ok = surface_pass(plan_n, normal_radius, viewpoint, need=need)
     return normal, kp, density, sal
+
+
+def surface_iss_cells(plan: GridPlan, normal_radius: float, iss_radius: float, viewpoint=None):
+    """The unmasked side stage (cellgrid.surface_iss_cells): the surface
+    pass (K1, every point) and ISS keypoints (K2-K4) on ONE plan, whose
+    cell holds both radii (cell >= max(normal_radius, iss_radius)); each
+    kernel masks its own radius.  Returns the JAX dict in input order:
+    normal, curv, density, eigvals, ok, kp, saliency."""
+    kp, sal = iss_pass(plan, iss_radius)
+    normal, curv, density, eigvals, ok = surface_pass(plan, normal_radius, viewpoint)
+    return dict(normal=normal, curv=curv, density=density, eigvals=eigvals, ok=ok, kp=kp,
+                saliency=sal)
 
 
 def fpfh_pass(plan: GridPlan, radius: float, kp=None, kp_rows=None):

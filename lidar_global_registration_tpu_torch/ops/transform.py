@@ -60,6 +60,12 @@ def kabsch(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None):
     return R, t
 
 
+def umeyama(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor | None = None):
+    """Rigid (no-scale) Umeyama == Kabsch: the named alias of
+    pcl::umeyama(cloud_src, cloud_tgt, false) in GROR's refine step."""
+    return kabsch(p, q, w)
+
+
 def to_matrix4(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R

@@ -43,21 +43,42 @@ def _rot():
                     np.float32)
 
 
-def run_pair(radii=RADII, **cfg):
+SETTINGS = dict(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
+                metric="uniformity")  # bench.py:238-256 in ISS mode
+
+
+def pair_inputs(n=N):
+    """The fixture pair (a, b, vp_a, vp_b) at n points per side."""
+    rng = np.random.default_rng(7)
+    a = (_scene(n, 3) + rng.normal(scale=0.004, size=(n, 3))).astype(np.float32)
+    b = ((_scene(n, 4) + rng.normal(scale=0.004, size=(n, 3))) @ _rot().T
+         + OFF).astype(np.float32)
+    vp_a = np.array([5.0, 5.0, 30.0], np.float32)
+    vp_b = (_rot() @ vp_a + OFF).astype(np.float32)
+    return a, b, vp_a, vp_b
+
+
+def port_pair(radii=RADII, n=N, **cfg):
+    """The fixture pair through the port alone; (result, stage times)."""
+    a, b, vp_a, vp_b = pair_inputs(n)
+    tones = torch.ones(n, dtype=torch.bool)
+    times = {}
+    out = tfl.register_pair_staged(
+        torch.from_numpy(a), tones, torch.from_numpy(b), tones,
+        torch.Generator().manual_seed(SEED), *radii, vp_src=torch.from_numpy(vp_a),
+        vp_tgt=torch.from_numpy(vp_b), cfg=tfl.FlagshipConfig(**{**SETTINGS, **cfg}),
+        return_correspondences=True, stage_times=times)
+    return out, times
+
+
+def run_pair(radii=RADII, n=N, **cfg):
     """The fixture pair through both packages with bench.py's ISS settings
     (bench.py:238-256) changed by `cfg`; the JAX side with its Pallas cells
     in interpret mode.  Returns both results, both packages' printed
     notices, the port's stage times and the ground truth."""
-    rng = np.random.default_rng(7)
-    a = (_scene(N, 3) + rng.normal(scale=0.004, size=(N, 3))).astype(np.float32)
-    b = ((_scene(N, 4) + rng.normal(scale=0.004, size=(N, 3))) @ _rot().T
-         + OFF).astype(np.float32)
-    vp_a = np.array([5.0, 5.0, 30.0], np.float32)
-    vp_b = (_rot() @ vp_a + OFF).astype(np.float32)
-    ones = np.ones(N, bool)
-    settings = dict(rounds=64, hypothesis_batch=1024, use_iss=True, match_tile=4096,
-                    metric="uniformity")
-    jcfg = jfl.FlagshipConfig(**{**settings, **cfg})
+    a, b, vp_a, vp_b = pair_inputs(n)
+    ones = np.ones(n, bool)
+    jcfg = jfl.FlagshipConfig(**{**SETTINGS, **cfg})
     out = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
         mp.setenv("LGR_CELL_FPFH", "force")
@@ -65,7 +86,7 @@ def run_pair(radii=RADII, **cfg):
             jnp.asarray(a), jnp.asarray(ones), jnp.asarray(b), jnp.asarray(ones),
             jax.random.PRNGKey(SEED), *radii, vp_src=jnp.asarray(vp_a),
             vp_tgt=jnp.asarray(vp_b), cfg=jcfg, return_correspondences=True)
-    tones = torch.ones(N, dtype=torch.bool)
+    tones = torch.ones(n, dtype=torch.bool)
     times = {}
     tlog = io.StringIO()
     with contextlib.redirect_stdout(tlog):

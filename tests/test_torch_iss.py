@@ -60,7 +60,7 @@ def test_iss_count_equals_brute_force(box):
     """K2's plain version: points within r, self included, exactly."""
     plan = box["plan"]
     r2 = cg._f32_square(RADIUS)
-    count = cg.iss_count_plain(plan, r2).numpy()
+    count = cg.iss_count_plain(plan, r2)[0].numpy()
     p = box["xyz"][box["valid"]]
     d = p[None, :, :] - p[:, None, :]
     want = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
@@ -69,6 +69,31 @@ def test_iss_count_equals_brute_force(box):
     got = np.zeros(len(box["valid"]), np.int64)
     got[plan.order[:plan.n_valid].numpy()] = count
     np.testing.assert_array_equal(got[rows], want)
+
+
+@pytest.mark.parametrize("cell_over_r", [1.0, 1.545, 4.0])
+def test_iss_count_returns_the_reciprocal_weight(box, cell_over_r):
+    """K2's second output is K3's weight of each point, 1 / max(count, 1),
+    the IEEE float32 quotient bit for bit (numpy's float32 division rounds
+    the same way), on plans whose cell is 1, 1.545 and 4 radii; K3 fed with
+    it equals K3's own formula on the counts."""
+    plan = cg.plan_grid(torch.from_numpy(box["xyz"]), torch.from_numpy(box["valid"]),
+                        RADIUS * cell_over_r)
+    r2 = cg._f32_square(RADIUS)
+    count, inv = cg.iss_count_plain(plan, r2)
+    assert count.dtype == torch.int32 and inv.dtype == torch.float32
+    assert count.shape == inv.shape == (plan.n_valid,)
+    assert int(count.min()) >= 1  # every query counts itself
+    want = np.float32(1.0) / np.maximum(count.numpy().astype(np.float32), np.float32(1.0))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(inv.numpy().view(np.uint32), want.view(np.uint32))
+    # the counts do not depend on the plan's cell
+    base, _ = cg.iss_count_plain(box["plan"], r2)
+    got = torch.zeros(len(box["valid"]), dtype=torch.int32)
+    got[plan.order[:plan.n_valid]] = count
+    ref = torch.zeros_like(got)
+    ref[box["plan"].order[:box["plan"].n_valid]] = base
+    assert torch.equal(got, ref)
 
 
 def test_iss_nms_is_a_strict_local_maximum(box):
@@ -97,10 +122,10 @@ def test_iss_nms_is_a_strict_local_maximum(box):
 def test_iss_kernels_refuse_cpu_tensors(box):
     plan = box["plan"]
     r2 = cg._f32_square(RADIUS)
-    count = cg.iss_count_plain(plan, r2)
-    sal, okq, _nnb = cg.iss_saliency_plain(plan, r2, count, 0.975, 0.975)
+    _count, inv = cg.iss_count_plain(plan, r2)
+    sal, okq, _nnb = cg.iss_saliency_plain(plan, r2, inv, 0.975, 0.975)
     for call in (lambda: cg.iss_count_cuda(plan, r2),
-                 lambda: cg.iss_saliency_cuda(plan, r2, count, 0.975, 0.975),
+                 lambda: cg.iss_saliency_cuda(plan, r2, inv, 0.975, 0.975),
                  lambda: cg.iss_nms_cuda(plan, r2, sal, okq, 4)):
         with pytest.raises(ValueError, match="CUDA"):
             call()

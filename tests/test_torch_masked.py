@@ -134,6 +134,39 @@ def test_surface_iss_masked_matches_jax(cloud, shot):
     assert not np.abs(tn[~cg.point_need(pf, T(tkp), s).numpy()]).any()
 
 
+def test_surface_iss_cells_matches_jax_and_the_masked_stage(cloud):
+    """The unmasked side stage (one plan at max(normal radius, ISS radius),
+    K1 over every row, K2-K4): against the JAX package's surface_iss_cells
+    with the bounds of the masked test above, at every valid row; and
+    against the port's own masked stage, exactly: the same keypoints, the
+    same normals and densities at every row the masked stage computed."""
+    xyz, valid, _kp = cloud
+    iss_r = 0.3
+    jout = jcg.surface_iss_cells(jnp.asarray(xyz), jnp.asarray(valid), NORMAL_R, iss_r,
+                                 viewpoint=jnp.asarray(VP), interpret=True, exact=True)
+    pn = cg.plan_grid(T(xyz), T(valid), max(NORMAL_R, iss_r))
+    out = cg.surface_iss_cells(pn, NORMAL_R, iss_r, T(VP))
+    assert sorted(out) == sorted(["normal", "curv", "density", "eigvals", "ok", "kp", "saliency"])
+    jkp, tkp = np.asarray(jout["kp"]), out["kp"].numpy()
+    assert (tkp == jkp).mean() > 0.995 and tkp.sum() > 20
+    jn, tn = np.asarray(jout["normal"]), out["normal"].numpy()
+    both = (np.abs(tn).sum(1) > 0) & (np.abs(jn).sum(1) > 0)
+    assert both.sum() > 0.98 * valid.sum()
+    dots = (tn[both] * jn[both]).sum(1)
+    assert (dots > 1 - 1e-4).mean() > 0.99 and (dots > 0.9).all()
+    np.testing.assert_allclose(out["density"].numpy()[valid], np.asarray(jout["density"])[valid],
+                               rtol=2e-4, atol=0)
+    np.testing.assert_array_equal(out["ok"].numpy(), np.asarray(jout["ok"]))
+    # the port's masked stage computes a subset of the same rows with the
+    # same per-query arithmetic
+    pf = cg.plan_grid(T(xyz), T(valid), FEATURE_R)
+    mn, mkp, md, msal = cg.surface_iss_masked(pn, pf, NORMAL_R, iss_r, T(VP))
+    assert torch.equal(out["kp"], mkp) and torch.equal(out["saliency"], msal)
+    need = cg.point_need(pf, mkp, 2)
+    assert torch.equal(out["normal"][need], mn[need])
+    assert torch.equal(out["density"][mkp], md[mkp])
+
+
 @pytest.mark.parametrize("descriptor", ["fpfh", "shot"])
 def test_kp_count_gate_and_mutual_fallback(cloud, monkeypatch, capsys, descriptor):
     """Every valid row a keypoint: the feature-scale route's keypoint-count

@@ -176,8 +176,21 @@ def test_config_from_jax_round_trip():
 
 @pytest.mark.parametrize("change", [
     dict(masked_features=False),  # the unmasked ISS route
-    dict(use_iss=False, descriptor="shot"),
+    dict(use_iss=False, descriptor="shot"),  # keypoint-any SHOT
     dict(use_iss=False, alignment="gror"),
+    dict(alignment="gror"),  # GROR on the ISS routes
+    dict(masked_features=False, descriptor="shot", alignment="gror"),
+])
+def test_config_from_jax_accepts_routes(change):
+    """The staged envelope's settings (pipeline.py:151-166) convert field
+    for field."""
+    jcfg = jfl.FlagshipConfig(**change)
+    tcfg = tfl.config_from_jax(dataclasses.asdict(jcfg))
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+@pytest.mark.parametrize("change", [
     dict(use_iss=False, pyramid=True),
     dict(use_iss=False, bf16_matching=True),
     dict(descriptor="shot", lrf="gt"),  # ground-truth SHOT frames
