@@ -51,6 +51,21 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       A 65,536-point ISS pair through the kernels and the plain versions
       (CPU), with FPFH, with SHOT and with FPFH + GROR (there also GROR on
       the card and on the CPU over one exported correspondence set).
+  The staged pyramid (the reference's AUTO feature radius; bench.py with
+      LGR_BENCH_ISS=1 LGR_BENCH_GRADED=1 LGR_BENCH_PYRAMID=1) on the
+      range-graded scene: at 1,048,576 points a side pre-downsample +
+      registration with FPFH and with the reference's default configuration
+      (SHOT, gravity frames), which comes out of the port's front (Config ->
+      expand_parameters -> staged_envelope), warm-up + 3 repeats each under
+      the success rule, once through align_point_clouds, and the vote and
+      the bucket query on the card against the CPU; at 10,485,760 points
+      once per descriptor, held to a finite pose, with K1 and the K5 / K6
+      subset forms checked on the finest and the coarsest level's surface
+      and K7 on one level's rows.  Each run prints its level ranges, matched
+      window, keypoints per bucket and surface rows per level, and must
+      match over at least 2 levels with no gate failed; the single
+      feature-scale route runs once on each pair beside it.  A graded
+      65,536-point pair through the kernels and the plain versions.
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -87,6 +102,7 @@ REPEATS = 3
 N_LARGE = 262144
 N_ISS = 10485760  # the bench's flagship ISS row (bench.py:422-425)
 N_ISS_SMALL = 65536
+N_PYR = 1048576  # the bench's graded pyramid rows at full width
 
 
 def log(*a):
@@ -714,16 +730,17 @@ def iss_cfg(**change):
 SHOT_CFG = dict(descriptor="shot", lrf="gravity")
 
 
-def iss_scene(n: int, dev):
+def iss_scene(n: int, dev, graded: bool = False):
     """The bench's ISS pair: the box + mound scene on 30 x sqrt(n / 2^20) m
-    (bench.py:168-176), sampled on `dev` from the scene's patch tables."""
+    (bench.py:168-176), sampled on `dev` from the scene's patch tables;
+    graded: with the range falloff of LGR_BENCH_GRADED=1."""
     from __graft_entry__ import _scene_tables
 
     from lidar_global_registration_tpu_torch.scene import scene_pair
     from lidar_global_registration_tpu_torch.types import SEED
 
     extent = 30.0 * max(1.0, float(np.sqrt(n / 2**20)))
-    return scene_pair(_scene_tables(SEED, extent=extent), n, extent, SEED, dev)
+    return scene_pair(_scene_tables(SEED, extent=extent), n, extent, SEED, dev, graded=graded)
 
 
 def saliency_err(got, want, r2: float, label: str, well=None):
@@ -930,9 +947,30 @@ def check_iss_edges(dev):
 
 
 def check_iss_kernels(sx, sv, radii):
-    """K2, K3, K4 on the pre-downsampled working cloud of one side and the
-    K5 / K6 subset forms on its feature-scale surface (the shapes of the
-    ISS route), each against its plain version."""
+    """K2, K3, K4 on the pre-downsampled working cloud of one side and K1
+    and the K5 / K6 subset forms on its feature-scale surface (the shapes
+    of the ISS route), each against its plain version."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    r_iss = radii["iss_src"]
+    plan = cg.plan_grid(sx, sv, r_iss)
+    records = iss_records(plan, r_iss)
+    kp, _sal = cg.iss_pass(plan, r_iss)
+    rows = torch.nonzero(kp).squeeze(1)
+    return records + surface_records(sx, sv, rows, torch.ones_like(rows, dtype=torch.bool),
+                                     radii["feature"], ("surface_fs", "spfh_at", "combine_at"))
+
+
+def surface_records(sx, sv, rows, in_level, rf: float, names):
+    """K1 on the voxel surface of the working cloud (sx, sv) for the feature
+    radius rf (voxel sqrt(pi rf^2 / 352), normals at sqrt(30 / pi) voxels)
+    and the K5 `kp` / K6 `kp_rows` forms there, each against its plain
+    version: the combine at the surface rows of the keypoints `rows` (input
+    rows of sx), SPFH around those `in_level` (all on the feature-scale
+    route; on a pyramid level those whose bucket is at most the level).
+    names: the three records' names."""
     import math
 
     import torch
@@ -943,38 +981,36 @@ def check_iss_kernels(sx, sv, radii):
 
     src = "lidar_global_registration_tpu_torch/csrc/"
     pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
-    r_iss = radii["iss_src"]
-    plan = cg.plan_grid(sx, sv, r_iss)
-    records = iss_records(plan, r_iss)
+    records = []
 
-    # the feature-scale surface, its normals and the keypoints' rows on it
-    kp, _sal = cg.iss_pass(plan, r_iss)
-    rf = radii["feature"]
+    def plain(fn):
+        fn()  # warm-up; the timed call's result is the one compared
+        return timed_once(fn)
+
     voxel_f = math.sqrt(math.pi * rf**2 / FEATURE_NR_POINTS)
     normal_f = math.sqrt(NORMAL_NR_POINTS / math.pi) * voxel_f
     sm, smv, row_of, _n_sm = voxel_centroids_map(sx, sv, voxel_f)
-    # K1's full pass on the voxel surface at normal_f (the FPFH and SHOT
-    # flagship routes run it once a side)
+    # K1's full pass on the voxel surface at normal_f
     pns = cg.plan_grid(sm, smv, normal_f)
     r2s = cg._f32_square(normal_f)
-    k1, k1_p = cg.surface_cuda(pns, r2s), cg.surface_plain(pns, r2s)
+    k1 = cg.surface_cuda(pns, r2s)
+    k1_p, k1_plain_ms = plain(lambda: cg.surface_plain(pns, r2s))
     records.append(dict(
-        name="surface_fs", route="cuda", source=src + "surface.cu", replaces=pallas + "1241",
-        max_abs_err=surface_err(*k1, *k1_p, "K1 (voxel surface)"), queries=int(pns.n_valid),
-        ms=cuda_ms(lambda: cg.surface_cuda(pns, r2s), 10),
-        plain_ms=cuda_ms(lambda: cg.surface_plain(pns, r2s), 1),
+        name=names[0], route="cuda", source=src + "surface.cu", replaces=pallas + "1241",
+        max_abs_err=surface_err(*k1, *k1_p, f"K1 ({names[0]})"), queries=int(pns.n_valid),
+        ms=cuda_ms(lambda: cg.surface_cuda(pns, r2s), 10), plain_ms=k1_plain_ms,
         **stencil_bound("surface", pns, k1_p[0][:, 7].sum(), tbytes(
             pns.pts, pns.cell_of, pns.cols, pns.oid, *k1)), library_ms=None))
-    log(f"# K1 on the voxel surface ok: {pns.n_valid} rows, {records[-1]['ms']:.4f} ms")
+    log(f"# K1 {names[0]} ok: {pns.n_valid} surface rows (voxel {voxel_f:.4f}), "
+        f"{records[-1]['ms']:.4f} ms")
     normal = cg.surface_pass(pns, normal_f)[0]
     pf = cg.set_normals(cg.plan_grid(sm, smv, rf), normal)
     r2f = cg._f32_square(rf)
     cen = cg.aabb_centre(pf)
     N = sm.shape[0]
-    rows_small = row_of[torch.nonzero(kp).squeeze(1)]
-    rows_small = torch.cat([rows_small, torch.full((5,), N, device=sm.device)])  # padding
+    rows_small = torch.cat([row_of[rows], torch.full((5,), N, device=sm.device)])  # padding
     kp_small = torch.zeros((N,), dtype=torch.bool, device=sm.device)
-    kp_small[rows_small[rows_small < N]] = True
+    kp_small[row_of[rows[in_level]]] = True
     slots = cg.stencil_slots(pf, torch.nonzero(kp_small[pf.order[:pf.n_valid]]).squeeze(1))
     # K5 subset: the same kernel over the keypoints' stencil, so its rows
     # equal the full pass's exactly; against the plain subset, the pair
@@ -983,19 +1019,19 @@ def check_iss_kernels(sx, sv, radii):
     s_at, c_at = cg.spfh_at_cuda(pf, r2f, cen, slots)
     assert torch.equal(c_at[slots], c_full[slots]), "K5 subset counts differ from K5"
     assert torch.equal(s_at[slots], s_full[slots]), "K5 subset rows differ from K5"
-    s_at_p, c_at_p = cg.spfh_plain(pf, r2f, cen, slots)
+    (s_at_p, c_at_p), k5_plain_ms = plain(lambda: cg.spfh_plain(pf, r2f, cen, slots))
     assert torch.equal(c_at, c_at_p), "K5 subset counts differ from the plain version"
     f5 = frac_off(s_at[slots], s_at_p[slots])
-    assert f5 < 1e-3, f"K5 subset: {f5:.2e} off by > 0.5"
+    assert f5 < 1e-3, f"K5 subset ({names[1]}): {f5:.2e} off by > 0.5"
     records.append(dict(
-        name="spfh_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
+        name=names[1], route="cuda", source=src + "fpfh.cu", replaces=pallas + "1554",
         max_abs_err=float((s_at - s_at_p).abs().max()), queries=int(slots.numel()),
-        ms=cuda_ms(lambda: cg.spfh_at_cuda(pf, r2f, cen, slots), 5),
-        plain_ms=cuda_ms(lambda: cg.spfh_plain(pf, r2f, cen, slots), 1),
+        ms=cuda_ms(lambda: cg.spfh_at_cuda(pf, r2f, cen, slots), 5), plain_ms=k5_plain_ms,
         **stencil_bound("spfh", pf, c_at[slots].sum(), tbytes(
             pf.pts, pf.nrm, pf.cell_of, pf.cols, slots) + slots.numel() * 4 * 34, slots),
         library_ms=None))
-    log(f"# K5 subset ok: {slots.numel()} of {pf.n_valid} surface points, frac_off={f5:.2e}")
+    log(f"# K5 {names[1]} ok: {slots.numel()} of {pf.n_valid} surface points, "
+        f"frac_off={f5:.2e}, {records[-1]['ms']:.4f} ms")
     # K6 at kp_rows against the full K6 gathered there (exact), and against
     # its plain version on the same SPFH input
     inv = cg.slot_of(pf)
@@ -1005,18 +1041,18 @@ def check_iss_kernels(sx, sv, radii):
     real = srt >= 0
     assert torch.equal(f_at[real], f_full[srt[real]]), "K6 kp_rows differ from K6"
     assert torch.equal(k_at[real], k_full[srt[real]]) and not bool(k_at[~real].any())
-    f_at_p, k_at_p = cg.combine_plain(pf, r2f, s_full, srt)
+    (f_at_p, k_at_p), k6_plain_ms = plain(lambda: cg.combine_plain(pf, r2f, s_full, srt))
     assert torch.equal(k_at, k_at_p), "K6 kp_rows counts differ from the plain version"
     f6 = frac_off(f_at, f_at_p)
-    assert f6 < 1e-3, f"K6 kp_rows: {f6:.2e} off by > 0.5"
+    assert f6 < 1e-3, f"K6 kp_rows ({names[2]}): {f6:.2e} off by > 0.5"
     records.append(dict(
-        name="combine_at", route="cuda", source=src + "fpfh.cu", replaces=pallas + "1608",
+        name=names[2], route="cuda", source=src + "fpfh.cu", replaces=pallas + "1608",
         max_abs_err=float((f_at - f_at_p).abs().max()), queries=int(srt.numel()),
-        ms=cuda_ms(lambda: cg.combine_at_cuda(pf, r2f, s_full, srt), 5),
-        plain_ms=cuda_ms(lambda: cg.combine_plain(pf, r2f, s_full, srt), 1),
+        ms=cuda_ms(lambda: cg.combine_at_cuda(pf, r2f, s_full, srt), 5), plain_ms=k6_plain_ms,
         **stencil_bound("combine", pf, k_at.sum(), tbytes(
             pf.pts, pf.cell_of, pf.cols, s_full, srt, f_at, k_at), srt), library_ms=None))
-    log(f"# K6 kp_rows ok: {int(real.sum())} rows, max_abs_err={records[-1]['max_abs_err']:.3g}")
+    log(f"# K6 {names[2]} ok: {int(real.sum())} rows, "
+        f"max_abs_err={records[-1]['max_abs_err']:.3g}, {records[-1]['ms']:.4f} ms")
     return records
 
 
@@ -1309,7 +1345,7 @@ def check_unmasked(S):
     return records
 
 
-def register_iss(S, cfg, seed, av=None, times=None):
+def register_iss(S, cfg, seed, av=None, times=None, debug=None):
     """pre-downsample + register_pair_staged on an ISS route (bench.py:275-290)."""
     import torch
 
@@ -1328,10 +1364,11 @@ def register_iss(S, cfg, seed, av=None, times=None):
     gen = torch.Generator(device=a.device).manual_seed(seed)
     return register_pair_staged(sx, sv, tx, tv, gen, *(S["radii"][k] for k in RADII_KEYS),
                                 vp_src=S["vp_a"], vp_tgt=S["vp_b"], cfg=cfg,
-                                return_correspondences=True, stage_times=times)
+                                return_correspondences=True, stage_times=times,
+                                pyramid_debug=debug)
 
 
-def iss_setup(dev, n: int):
+def iss_setup(dev, n: int, graded: bool = False):
     """An ISS pair sampled on `dev`: raw radii, the pre-downsample voxels
     and bounds, the pre-downsampled working clouds and their radii."""
     import torch
@@ -1342,7 +1379,7 @@ def iss_setup(dev, n: int):
     )
     from lidar_global_registration_tpu_torch.ops.density import derive_radii
 
-    a, b, vp_a, vp_b, T_gt = iss_scene(n, dev)
+    a, b, vp_a, vp_b, T_gt = iss_scene(n, dev, graded)
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     raw = derive_radii(a, b)
     vox = (2.0 * raw["density_src"], 2.0 * raw["density_tgt"])
@@ -1371,14 +1408,17 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+    levels = 0
     for r in range(repeats):
         av = S["a"] + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
         torch.cuda.synchronize()
-        times = {}
+        times, debug = {}, {}
         t0 = time.perf_counter()
-        out = register_iss(S, cfg, SEED + r, av, times)
+        out = register_iss(S, cfg, SEED + r, av, times, debug)
         out["transformation"].cpu()  # waits for the device
         dt = time.perf_counter() - t0
+        if cfg.pyramid:
+            levels = pyramid_record(debug, times, f"{label} repeat {r}")
         r_err, t_err, finite = pose_error(out, S["T_gt"].cpu().numpy())
         conv = bool(out["converged"])
         ok = conv and r_err < R_ERR_MAX and t_err < S["radii"]["thr"] and finite
@@ -1392,8 +1432,212 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     launches = {c.__name__: c.launches for c in counters}
     log(f"# launches in the {label} runs: {launches}")
     assert all(n > 0 for n in launches.values()), f"a kernel of the {label} path was never launched"
+    # the pyramid launches K1 (and for FPFH K5, K6) once per level per side
+    per_level = [n for k, n in launches.items() if k.split("_")[0] in ("surface", "spfh", "combine")]
+    assert all(n >= levels for n in per_level), f"{label}: fewer launches than levels ({levels})"
     log(f"#   peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return launches
+
+
+def pyramid_record(debug, times, label: str) -> int:
+    """Log one pyramid run's record (level ranges, matched window,
+    keypoints per bucket, surface rows per level) and require that the
+    pyramid ran to its end (a failed gate leaves the record empty) over at
+    least 2 matched levels.  Returns the levels of both sides together."""
+    assert debug and "match_pyramid" in times, f"{label}: a pyramid gate failed"
+    lo, hi = debug["match"]
+    s, t = debug["side_src"], debug["side_tgt"]
+    log(f"#   pyramid levels src [{s['min_log2']},{s['max_log2']}] tgt [{t['min_log2']},"
+        f"{t['max_log2']}] match [{lo},{hi}]; kp per bucket src {s['kp_per_bucket']} tgt "
+        f"{t['kp_per_bucket']}; surface rows src {s['surface_rows']} tgt {t['surface_rows']}")
+    assert hi - lo + 1 >= 2, f"{label}: only {hi - lo + 1} matched level"
+    return len(s["surface_rows"]) + len(t["surface_rows"])
+
+
+def default_pyramid_cfg(S):
+    """The reference's default configuration (nothing named but the shipped
+    gravity frames and the bench's hypothesis batch: ISS, SHOT, cluster
+    matching, uniformity, no feature radius) through the port's front:
+    Config -> expand_parameters -> staged_envelope.  Returns (parameters,
+    FlagshipConfig)."""
+    from lidar_global_registration_tpu_torch.models.pipeline import staged_envelope
+    from lidar_global_registration_tpu_torch.utils.config import Config, expand_parameters
+
+    radii = S["radii"]
+    (params,) = expand_parameters(Config({"lrf": "gravity", "hypothesis_batch": 1024}),
+                                  radii["density_src"], radii["density_tgt"], False,
+                                  S["vp_a"].cpu().numpy(), S["vp_b"].cpu().numpy())
+    cfg, reason = staged_envelope(params)
+    assert cfg is not None, f"the default configuration left the staged envelope: {reason}"
+    assert params.feature_radius is None and cfg.pyramid and cfg.use_iss and cfg.cluster_matching
+    assert (cfg.descriptor, cfg.lrf, cfg.metric, cfg.rounds) == ("shot", "gravity", "uniformity", 64)
+    assert abs(params.iss_radius_src - radii["iss_src"]) < 1e-9
+    assert abs(params.distance_thr - radii["thr"]) < 1e-9
+    return params, cfg
+
+
+def check_front(S, params):
+    """align_point_clouds on the working clouds of S under the default
+    configuration: the pyramid through the port's own entry point, held to
+    the bench's success rule."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.pipeline import align_point_clouds
+    from lidar_global_registration_tpu_torch.types import Cloud
+
+    def cloud(x, v):
+        z = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+        return Cloud(x, torch.zeros_like(x), v.to(torch.float32), z, v)
+
+    radii = S["radii"]
+    t0 = time.perf_counter()
+    res = align_point_clouds(cloud(S["sx"], S["sv"]), cloud(S["tx"], S["tv"]), params,
+                             save_artifacts=False, density_src=radii["density_src"],
+                             density_tgt=radii["density_tgt"], device=S["sx"].device)
+    dt = time.perf_counter() - t0
+    r_err, t_err, finite = pose_error({"transformation": torch.from_numpy(res.transformation)},
+                                      S["T_gt"].cpu().numpy())
+    n_c = int(res.correspondences.valid.sum())
+    log(f"# align_point_clouds (default configuration, n={S['a'].shape[0]}): {dt:.4f} s "
+        f"converged={res.converged} r_err={r_err:.5f} t_err={t_err:.4f} corr={n_c} "
+        f"metric={res.metric:.4f} iterations={res.iterations}")
+    assert res.converged and finite and r_err < R_ERR_MAX and t_err < radii["thr"], \
+        "align_point_clouds failed the bench's success rule"
+    assert res.correspondences.query.is_cuda and n_c > 0
+
+
+def check_pyramid_kernels(S, cfg):
+    """K1 and the K5 `kp` / K6 `kp_rows` forms on the finest and the
+    coarsest level's surface of the source side, and K7 on the lowest
+    matched level's descriptor rows, as one FPFH pyramid run of S gives
+    them; each against its plain version."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    debug = {}
+    register_iss(S, cfg, SEED, debug=debug)
+    side = debug["side_src"]
+    rows, bucket = side["kp_indices"], side["log2_radii"]
+    records = []
+    for tag, l in (("fine", side["min_log2"]), ("coarse", side["max_log2"])):
+        log(f"# pyramid level {l} ({tag}), r = {cfg.scale_factor ** l:.4f}: "
+            f"{int((bucket <= l).sum())} of {rows.numel()} keypoints")
+        records += surface_records(S["sx"], S["sv"], rows, bucket <= l,
+                                   float(cfg.scale_factor) ** l,
+                                   tuple(f"{k}_pyr_{tag}" for k in ("surface", "spfh_at",
+                                                                    "combine_at")))
+    lo = debug["match"][0]
+    (fa, va), (fb, vb) = (debug[s]["levels"][lo - debug[s]["min_log2"]]
+                          for s in ("side_src", "side_tgt"))
+    d2k, ik = nn_l2.nn_l2_cuda(fa, fb, vb)
+    d2p, ip = nn_l2.nn_l2_plain(fa, fb, vb)
+    dk, dp = d2k.clamp_min(0).sqrt(), d2p.clamp_min(0).sqrt()
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5)
+    same = (dk - dp).abs() <= 1e-6
+    assert torch.equal(ik[same], ip[same]), "K7 (pyramid level) indices differ where distances agree"
+    records.append(dict(
+        name="nn_l2_pyr", route="cuda", source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((dk - dp).abs().max()), idx_mismatch=int((ik != ip).sum()),
+        shape=[int(fa.shape[0]), int(fb.shape[0]), int(fa.shape[1])],
+        valid_rows=[int(va.sum()), int(vb.sum())],
+        ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(fa, fb, vb), 10),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(fa, fb, vb), 2),
+        **nn_bound(fa, fb, vb, d2k, ik),
+        library_ms=cuda_ms(lambda: library_nn(fa, fb, vb), 2)))
+    log(f"# K7 on level {lo}: {fa.shape[0]} x {fb.shape[0]} rows ({int(va.sum())} / "
+        f"{int(vb.sum())} valid), max_abs_err={records[-1]['max_abs_err']:.3g}")
+    return records
+
+
+def check_vote_and_buckets(S, cfg):
+    """The cross-level vote and the bucket query on the card against the
+    CPU on one exported input: the same winners, the same buckets."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.flagship import _bucket_rows
+    from lidar_global_registration_tpu_torch.models.pyramid import _consensus_vote
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    debug = {}
+    register_iss(S, cfg, SEED, debug=debug)
+    ci, cd, cm = debug["candidates_st"]
+    train = S["tx"][debug["side_tgt"]["kp_indices"]]
+    r_iss = S["radii"]["iss_tgt"]
+    on_card = _consensus_vote(ci, cd, cm, train, r_iss)
+    on_cpu = _consensus_vote(ci.cpu(), cd.cpu(), cm.cpu(), train.cpu(), r_iss)
+    for name, g, c in zip(("b_idx", "b_dist", "b_mask", "s_dist", "s_mask"), on_card, on_cpu):
+        assert torch.equal(g.cpu(), c), f"_consensus_vote, card against CPU: {name} differs"
+    log(f"# _consensus_vote on {tuple(ci.shape)} candidates, card = CPU in all five outputs; "
+        f"{int(on_cpu[2].sum())} winners, {int(on_cpu[4].sum())} with a runner-up")
+    kp = torch.zeros_like(S["sv"])
+    kp[debug["side_src"]["kp_indices"]] = True
+    dcell = S["radii"]["density_src"]
+    t0 = time.perf_counter()
+    li_g, hist_g, found_g = _bucket_rows(S["sx"], S["sv"], kp, dcell, cfg.scale_factor)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    li_c, hist_c, found_c = _bucket_rows(S["sx"].cpu(), S["sv"].cpu(), kp.cpu(), dcell,
+                                         cfg.scale_factor)
+    # the distances are the same float32 sums; sqrt and log2 may round
+    # another way on the two devices, which moves a radius on a bucket edge
+    valid = S["sv"].cpu()
+    off = int((li_g.cpu() != li_c)[valid].sum())
+    assert torch.equal(found_g.cpu(), found_c), "bucket query: the windows found differ"
+    assert off <= 1e-5 * int(valid.sum()) + 1, f"bucket query: {off} buckets differ"
+    assert int((hist_g.cpu() - hist_c).abs().sum()) <= 2
+    log(f"# bucket query on {int(valid.sum())} rows: card = CPU but {off} buckets, "
+        f"{int(found_c[valid].sum())} rows with their 5th neighbour in the window; "
+        f"{t_card:.4f} s on the card")
+
+
+def pyramid_phase(dev):
+    """The staged pyramid on the graded bench scene (bench.py with
+    LGR_BENCH_ISS=1 LGR_BENCH_GRADED=1 LGR_BENCH_PYRAMID=1): at 1,048,576
+    points a side pre-downsample + registration with FPFH and with the
+    reference's default configuration (SHOT, gravity frames; reached
+    through Config -> expand_parameters -> staged_envelope), a warm-up and 3
+    repeats each under the bench's success rule, and the default
+    configuration once through align_point_clouds; at 10,485,760 points
+    once per descriptor, held to a finite pose, after the kernels were
+    checked at that pair's level shapes.  Returns the kernel records and
+    each run's launch counts."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+
+    iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
+    fpfh_k = (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda, nn_l2.nn_l2_cuda)
+    shot_k = (cg.surface_cuda, *iss_k, nn_l2.nn_l2_cuda)
+    records, launches = [], {}
+    for n, tag, repeats, rule in ((N_PYR, "1m", REPEATS, True), (N_ISS, "10m", 1, False)):
+        t0 = time.perf_counter()
+        S = iss_setup(dev, n, graded=True)
+        torch.cuda.synchronize()
+        log(f"# graded pair n={n}: set-up {time.perf_counter() - t0:.2f} s; pre-downsample -> "
+            f"{S['sx'].shape[0]} rows/side ({int(S['sv'].sum())}/{int(S['tv'].sum())} valid, "
+            f"voxel {S['vox'][0]:.4f}/{S['vox'][1]:.4f}); radii {S['radii']}")
+        params, shot_cfg = default_pyramid_cfg(S)
+        fpfh_cfg = iss_cfg(pyramid=True)
+        if rule:
+            check_vote_and_buckets(S, fpfh_cfg)
+            check_front(S, params)
+        else:
+            records += check_pyramid_kernels(S, fpfh_cfg)
+        launches[f"pyr_fpfh_{tag}"] = iss_runs(S, fpfh_cfg, fpfh_k, f"pyramid FPFH {tag}",
+                                               repeats, rule)
+        launches[f"pyr_shot_{tag}"] = iss_runs(S, shot_cfg, shot_k, f"pyramid SHOT {tag}",
+                                               repeats, rule)
+        # the same pair through the single feature-scale route, for the cost
+        # of the pyramid beside it
+        launches[f"fs_fpfh_{tag}"] = iss_runs(S, iss_cfg(), fpfh_k, f"feature-scale FPFH {tag}",
+                                              1, False)
+        del S
+        torch.cuda.empty_cache()
+    return records, launches
 
 
 def iss_phase(dev):
@@ -1457,15 +1701,15 @@ def iss_phase(dev):
     return records, launches
 
 
-def iss_small_pair(dev, label: str, **change):
+def iss_small_pair(dev, label: str, graded: bool = False, min_share: float = 0.8, **change):
     """A 65,536-point ISS pair through the kernels and through the plain
-    versions (CPU), from one sample."""
+    versions (CPU), from one sample; `graded`: the range-graded scene."""
     import torch
 
     from lidar_global_registration_tpu_torch.types import SEED
 
     cpu = torch.device("cpu")
-    S0 = iss_setup(cpu, N_ISS_SMALL)  # one sample, one set of radii for both paths
+    S0 = iss_setup(cpu, N_ISS_SMALL, graded)  # one sample, one set of radii for both paths
     outs = []
     for d in (dev, cpu):
         S = {k: v.to(d) if torch.is_tensor(v) else v for k, v in S0.items()}
@@ -1502,7 +1746,7 @@ def iss_small_pair(dev, label: str, **change):
     # gamma gates, the SHOT frames' covariances) and atan2f (K5's bin
     # edges); the consensus gate and the max_correspondences cap pass such
     # differences on
-    assert share >= 0.8, share
+    assert share >= min_share, share
 
 
 def main() -> int:
@@ -1645,7 +1889,20 @@ def main() -> int:
         route, key = own.get(rec["name"], ("fpfh", rec["name"] + "_cuda"))
         rec["launches"] = iss_launches[route][key]
     records += iss_records
+
+    # the staged pyramid on the graded 1M and 10M pairs
+    pyr_records, pyr_launches = pyramid_phase(dev)
+    for rec in pyr_records:
+        key = "nn_l2_cuda" if rec["name"] == "nn_l2_pyr" else (
+            rec["name"].split("_pyr_")[0] + "_cuda")
+        rec["launches"] = pyr_launches["pyr_fpfh_10m"][key]
+    for rec in records:
+        if rec["name"] in counts:
+            for route, got in pyr_launches.items():
+                rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
+    records += pyr_records
     iss_small_pair(dev, "ISS")
+    iss_small_pair(dev, "pyramid", graded=True, min_share=0.9, pyramid=True)
     iss_small_pair(dev, "SHOT", **SHOT_CFG)
     iss_small_pair(dev, "GROR", alignment="gror")
 

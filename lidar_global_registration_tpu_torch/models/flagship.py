@@ -42,13 +42,23 @@ The keypoint-any route (`use_iss=False`; flagship.py:1795-1836, 1857-1872,
 with descriptor="shot" (flagship.py:1104-1107, 1846-1852, 1929-1950) no
 FPFH, SHOT over every row on the plan at the feature radius.
 
+The staged multi-scale pyramid (`pyramid=True`, the route of the
+reference's AUTO feature radius; flagship.py:1209-1503, then :1907-1915),
+entered where the feature-scale route would be: ISS keypoints, a log2
+bucket of each keypoint's density-derived feature radius, per occupied
+bucket a voxel surface of the working cloud with its K1 normals and the
+descriptors of the keypoints of that bucket and below, descriptor k-NN per
+level both ways, the cross-level consensus vote (models/pyramid.py), then
+the cluster gate of match_corr on the vote's winners.  A failed level gate
+prints the JAX package's notice and leaves for the feature-scale route.
+
 The solver stage is the prerejective RANSAC above or, with
 alignment="gror", GROR over the whole correspondence set (models/gror.py;
 flagship.py:802-829, 1951-1957).
 
 Still unported, each raising NotImplementedError that names its ROADMAP.md
-item (Queue 1): the staged pyramid, the bf16 matcher, the grid-hash FPFH
-of use_cell_fpfh=False, lrf="gt".  There are no learned weights: what
+item (Queue 1): the bf16 matcher, the grid-hash FPFH of
+use_cell_fpfh=False, lrf="gt".  There are no learned weights: what
 carries over from the JAX package is its config (`config_from_jax`) and
 the radii (ops/density.derive_radii).
 """
@@ -63,9 +73,13 @@ import numpy as np
 import torch
 
 from lidar_global_registration_tpu_torch.models.gror import gror_solve
-from lidar_global_registration_tpu_torch.models.pyramid import _cluster_distances
+from lidar_global_registration_tpu_torch.models.pyramid import (
+    _cluster_distances,
+    _consensus_vote,
+)
 from lidar_global_registration_tpu_torch.models.ransac import draw_hypotheses
 from lidar_global_registration_tpu_torch.ops import cellgrid, matchers
+from lidar_global_registration_tpu_torch.ops.density import knn_window
 from lidar_global_registration_tpu_torch.ops.downsample import (
     voxel_centroids_map,
     voxel_centroids_packed,
@@ -87,7 +101,6 @@ MIN_INLIER_RATE = 0.15
 
 # (field, value the port supports, ROADMAP.md Queue 1 item that ports the others)
 _SLICE_ONLY = (
-    ("pyramid", False, "'Staged pyramid'"),
     ("bf16_matching", False, "'Host-path ops' (the bf16 matcher)"),
     ("use_cell_fpfh", True, "'Host-path ops' (the grid-hash FPFH, ops/fpfh.py)"),
 )
@@ -97,9 +110,9 @@ _SLICE_ONLY = (
 class FlagshipConfig:
     """The fields of the JAX FlagshipConfig the ported routes read, with
     the JAX defaults.  Every setting of use_iss, masked_features,
-    feature_scale, cluster_matching, descriptor and alignment ("ransac" |
-    "gror") runs; pyramid, bf16_matching, use_cell_fpfh=False and lrf="gt"
-    raise NotImplementedError (ROADMAP.md Queue 1)."""
+    feature_scale, cluster_matching, pyramid, descriptor and alignment
+    ("ransac" | "gror") runs; bf16_matching, use_cell_fpfh=False and
+    lrf="gt" raise NotImplementedError (ROADMAP.md Queue 1)."""
 
     rounds: int = 8
     hypothesis_batch: int = 512
@@ -131,7 +144,11 @@ class FlagshipConfig:
     degree_top: int = 800
     ransac_compact: int = 4096
     alignment: str = "ransac"
+    # the multi-scale pyramid (matching.h:163-354) in place of the single
+    # feature-scale surface, where that route would be taken
     pyramid: bool = False
+    scale_factor: float = 2.0  # pyramid level base (config `scale`)
+    pyramid_randomness: int = 1  # k-NN candidates per level entering the vote
 
     def __post_init__(self):
         for field, value, item in _SLICE_ONLY:
@@ -301,17 +318,23 @@ def _centred(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, tgt_xyz,
                               dens_s, dens_t, distance_thr: float, cfg: FlagshipConfig,
-                              kc: int):
+                              kc: int, cand=None):
     """The compacted matching region (flagship._compact_match_corr_stage):
-    descriptor 1-NN both ways on the compacted rows; with cluster matching
-    the consensus filter over the keypoints' exact kc-NN (self excluded by
-    id, keypoints centred per side) and the keypoint-cloud density as
-    threshold; then the scatter back to full rows and the correspondence
-    stage (one-sided with cluster matching, mutual without)."""
+    descriptor 1-NN both ways on the compacted rows, or, given
+    cand = (ic_st, mc_st, ic_ts, mc_ts) ([M, 1] each, the pyramid's vote
+    winners), those in their place (fqc / ftc are then None); with cluster
+    matching the consensus filter over the keypoints' exact kc-NN (self
+    excluded by id, keypoints centred per side) and the keypoint-cloud
+    density as threshold; then the scatter back to full rows and the
+    correspondence stage (one-sided with cluster matching, mutual
+    without)."""
     N_all = src_xyz.shape[0]
     dev = src_xyz.device
-    ic_st, _dc1, mc_st = matchers.match_bf(fqc, ftc, qv, tv, k=1, tile=cfg.match_tile)
-    ic_ts, _dc2, mc_ts = matchers.match_bf(ftc, fqc, tv, qv, k=1, tile=cfg.match_tile)
+    if cand is not None:
+        ic_st, mc_st, ic_ts, mc_ts = cand
+    else:
+        ic_st, _dc1, mc_st = matchers.match_bf(fqc, ftc, qv, tv, k=1, tile=cfg.match_tile)
+        ic_ts, _dc2, mc_ts = matchers.match_bf(ftc, fqc, tv, qv, k=1, tile=cfg.match_tile)
     clustered = cfg.use_iss and cfg.cluster_matching
     if clustered:
         ksq = _centred(src_xyz[sq_g], qv)
@@ -494,9 +517,10 @@ def ransac_solve(p, q, thr, cvalid, generator: torch.Generator, cfg: FlagshipCon
 # register_pair_staged
 # ---------------------------------------------------------------------------
 class _GateFailed(Exception):
-    """A data gate of the feature-scale route failed: the JAX package
-    prints its notice and takes the classic masked route
-    (flagship.py:1594-1607, 1668-1670)."""
+    """A data gate of the feature-scale route or of the staged pyramid
+    failed: the JAX package prints its notice and takes the classic masked
+    route (flagship.py:1594-1607, 1668-1670), or from the pyramid the
+    feature-scale route (:1501-1503)."""
 
 
 def _shot_stage(kp_xyz, kp_normal, kpv, surf_xyz, surf_normal, surf_valid, radius: float,
@@ -701,6 +725,196 @@ def _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, 
     return out
 
 
+_BUCKET_LO, _BUCKET_HI = -24, 24  # the log2-bucket window: radii of 6e-8 to 1.7e7 m
+_MAX_LEVELS = 6
+
+
+def _bucket_rows(xyz, valid, kp, dcell: float, scale_factor: float):
+    """Per row the log2 bucket of its density-derived feature radius
+    (flagship._bucket_rows, matching.h:177-208): d = the distance to the
+    5th nearest point, the row included, r = sqrt(FEATURE_NR d^2 / pi),
+    bucket = floor(log_scale r).  The neighbours are sought within 4 dcell;
+    a row with c < 5 points in that window takes d = 4 dcell sqrt(5 / c),
+    the spacing of c points spread over the window's disk.  Returns (bucket
+    i64[N], the keypoint rows' histogram i64[49] over [_BUCKET_LO,
+    _BUCKET_HI], found bool[N]: the 5th neighbour lay in the window)."""
+    window = 4.0 * dcell
+    d5 = knn_window(xyz, valid, window, 5)
+    seen = torch.isfinite(d5)
+    found = seen[:, 4]
+    est = window * torch.sqrt(5.0 / seen.sum(1).to(torch.float32).clamp_min(1.0))
+    d = torch.where(found, d5[:, 4], est)
+    r_row = torch.sqrt(FEATURE_NR_POINTS * d * d / math.pi)
+    li = torch.floor(torch.log2(r_row.clamp_min(1e-7)) / math.log2(scale_factor))
+    li = li.to(torch.int64).clamp(_BUCKET_LO, _BUCKET_HI)
+    hist = torch.zeros((_BUCKET_HI - _BUCKET_LO + 1,), dtype=torch.int64, device=xyz.device)
+    hist.index_add_(0, li - _BUCKET_LO, (kp & valid).to(torch.int64))
+    return li, hist, found
+
+
+def _prune_levels(counts: np.ndarray):
+    """(lowest, highest) bucket kept of a keypoint histogram over
+    [_BUCKET_LO, _BUCKET_HI] (flagship._prune, matching.h:196-204): the
+    occupied range without the bottom levels that hold under 10 % of the
+    fullest level's keypoints and the top levels that hold under 0.1 %."""
+    nz = np.nonzero(counts)[0]
+    if len(nz) == 0:
+        raise _GateFailed("no occupied pyramid buckets")
+    lo, hi = int(nz[0]), int(nz[-1])
+    peak = int(counts.max())
+    while 10 * int(counts[lo]) < peak:
+        lo += 1
+    while 1000 * int(counts[hi]) < peak:
+        hi -= 1
+    return lo + _BUCKET_LO, hi + _BUCKET_LO
+
+
+def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t,
+                   debug=None):
+    """The staged multi-scale pyramid (flagship.py:1209-1503, then the
+    candidate branch of the matching stage, :1907-1915): ISS keypoints,
+    their radius buckets, per side and level of its pruned bucket range a
+    voxel surface of the working cloud (voxel_l = sqrt(pi r_l^2 / 352),
+    r_l = scale_factor^l) with K1 normals at sqrt(30 / pi) voxel_l and
+    FPFH (K5 / K6 at the keypoints' surface rows) or SHOT (at the exact
+    keypoints) of the keypoints whose bucket is at most l; over the levels
+    both sides have, descriptor k-NN both ways, all levels' candidates into
+    the consensus vote, and the winners through the cluster gate.  The
+    level windows come from this pair's data, so the number of launches
+    differs from pair to pair.  Raises _GateFailed where the JAX package
+    leaves for the feature-scale route: keypoint counts outside (0, N/2],
+    no occupied bucket, ranges that share no level, more than 6 levels a
+    side.  `debug`: a dict that receives the level ranges, the keypoints
+    per bucket, each level's surface size and, as device tensors, the
+    keypoints' rows and buckets, each level's (descriptors, validity), and
+    the source side's candidates and winners."""
+    (_normal_cell, dens_s, dens_t, iss_radius_src, iss_radius_tgt, _feature_radius,
+     distance_thr) = radii
+    shot_mode = cfg.descriptor == "shot"
+    N_all = src_valid.shape[0]
+    dev = src_xyz.device
+    pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
+    pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
+    _t("plan")
+    src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
+    _t("side_src")
+    tgt_kp, _sal_t = cellgrid.iss_pass(pi_t, iss_radius_tgt)
+    _t("side_tgt")
+    li_s, hist_s, fnd_s = _bucket_rows(src_xyz, src_valid, src_kp, dens_s, cfg.scale_factor)
+    li_t, hist_t, fnd_t = _bucket_rows(tgt_xyz, tgt_valid, tgt_kp, dens_t, cfg.scale_factor)
+    # ONE host read: both keypoint counts and both bucket histograms
+    cnt = torch.cat([torch.stack([src_kp.sum(), tgt_kp.sum()]), hist_s, hist_t]).cpu().numpy()
+    _t("bucket")
+    n_kp_s, n_kp_t = int(cnt[0]), int(cnt[1])
+    if not (0 < n_kp_s <= N_all // 2 and 0 < n_kp_t <= N_all // 2):
+        raise _GateFailed(f"kp counts {n_kp_s}/{n_kp_t} of {N_all} rows outside the "
+                          "compaction precondition")
+    n_bins = hist_s.shape[0]
+    min_s, max_s = _prune_levels(cnt[2:2 + n_bins])
+    min_t, max_t = _prune_levels(cnt[2 + n_bins:])
+    lo_m, hi_m = max(min_s, min_t), min(max_s, max_t)
+    if hi_m < lo_m:
+        raise _GateFailed(f"pyramid ranges disjoint: src [{min_s},{max_s}] vs "
+                          f"tgt [{min_t},{max_t}]")
+    if max(max_s - min_s, max_t - min_t) + 1 > _MAX_LEVELS:
+        raise _GateFailed(f"pyramid would need >{_MAX_LEVELS} levels (src [{min_s},{max_s}], "
+                          f"tgt [{min_t},{max_t}])")
+
+    def pyr_side(xyz, valid, kp, n_kp, li_row, lmin, lmax, vp, which):
+        m = _pad_quantum(n_kp)
+        sj = _compact_rows(kp, n_kp, m)
+        g = sj.clamp_max(N_all - 1)
+        kpv = torch.arange(m, device=dev) < n_kp
+        li_kp = li_row[g].clamp(lmin, lmax)
+        # every level's surface is voxelised from the working cloud itself
+        maps = []
+        for l in range(lmin, lmax + 1):
+            r_l = float(cfg.scale_factor) ** l
+            voxel_l = float(math.sqrt(math.pi * r_l * r_l / FEATURE_NR_POINTS))
+            maps.append((r_l, float(math.sqrt(NORMAL_NR_POINTS / math.pi)) * voxel_l,
+                         voxel_centroids_map(xyz, valid, voxel_l)))
+        n_sms = [int(v) for v in torch.stack([mp[2][3] for mp in maps]).tolist()]  # one read
+        _t("fs_maps")
+        plans = [(cellgrid.plan_grid(sm_xyz, sm_v, normal_l),
+                  None if shot_mode else cellgrid.plan_grid(sm_xyz, sm_v, r_l))
+                 for r_l, normal_l, (sm_xyz, sm_v, _row_of, _n) in maps]
+        _t("plan")
+        levels = []
+        for i, (r_l, normal_l, (sm_xyz, sm_v, row_of, _n)) in enumerate(maps):
+            l = lmin + i
+            pns, pfs = plans[i]
+            normal_sm = cellgrid.surface_pass(pns, normal_l, vp)[0]
+            mask_l = kpv & (li_kp <= l)
+            rows_small = torch.where(sj < N_all, row_of[g], N_all)
+            if shot_mode:
+                # the surface's rows are front-compacted: slicing to its
+                # padded size shrinks the query's grid
+                ms = min(_pad_quantum(n_sms[i]), N_all)
+                normal_c = normal_sm[:ms]
+                featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)], mask_l,
+                                         sm_xyz[:ms], normal_c, sm_v[:ms], r_l, cfg)
+                _t(f"shot_{which}_l{l}")
+            else:
+                # SPFH around this level's keypoints only; the combine runs
+                # at every keypoint's row and mask_l drops the others
+                kp_small = torch.zeros((N_all,), dtype=torch.bool, device=dev)
+                kp_small[rows_small[mask_l]] = True
+                featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), r_l,
+                                                kp=kp_small, kp_rows=rows_small)
+                _t(f"fpfh_{which}_l{l}")
+            levels.append((featc, mask_l & fvc))
+        return sj, g, kpv, li_kp, levels, n_sms
+
+    sj_s, g_s, kpv_s, li_kp_s, levels_s, n_sms_s = pyr_side(
+        src_xyz, src_valid, src_kp, n_kp_s, li_s, min_s, max_s, vp_src, "src")
+    sj_t, g_t, kpv_t, li_kp_t, levels_t, n_sms_t = pyr_side(
+        tgt_xyz, tgt_valid, tgt_kp, n_kp_t, li_t, min_t, max_t, vp_tgt, "tgt")
+
+    def vote(levels_a, min_a, levels_b, min_b, train_xyz, iss_r):
+        """Cross-level candidates and their vote, one direction
+        (match_multiscale, matching.h:264-354); candidate ids are rows of
+        the counterpart's compacted keypoints."""
+        k = max(1, cfg.pyramid_randomness)
+        parts = []
+        for l in range(lo_m, hi_m + 1):
+            fa, va = levels_a[l - min_a]
+            fb, vb = levels_b[l - min_b]
+            parts.append(matchers.match_bf(fa, fb, va, vb, k=k, tile=cfg.match_tile))
+        ci, cd, cm = (torch.cat(x, 1) for x in zip(*parts))
+        b_idx, _b_dist, b_mask, _s_dist, _s_mask = _consensus_vote(ci, cd, cm, train_xyz, iss_r)
+        return b_idx[:, None], b_mask[:, None], (ci, cd, cm)
+
+    ic_st, mc_st, cand_st = vote(levels_s, min_s, levels_t, min_t, tgt_xyz[g_t], iss_radius_tgt)
+    ic_ts, mc_ts, _cand = vote(levels_t, min_t, levels_s, min_s, src_xyz[g_s], iss_radius_src)
+    _t("match_pyramid")
+    if debug is not None:
+        def side_record(lmin, lmax, hist, n_sms, n_kp, sj, li_kp, found, levels):
+            return dict(min_log2=lmin, max_log2=lmax, surface_rows=n_sms,
+                        kp_per_bucket={b + _BUCKET_LO: int(c) for b, c in enumerate(hist) if c},
+                        kp_indices=sj[:n_kp], log2_radii=li_kp[:n_kp],
+                        exact_5nn=found[sj[:n_kp]], levels=levels)
+
+        debug.update(
+            match=(lo_m, hi_m),
+            side_src=side_record(min_s, max_s, cnt[2:2 + n_bins], n_sms_s, n_kp_s, sj_s, li_kp_s,
+                                 fnd_s, levels_s),
+            side_tgt=side_record(min_t, max_t, cnt[2 + n_bins:], n_sms_t, n_kp_t, sj_t, li_kp_t,
+                                 fnd_t, levels_t),
+            candidates_st=cand_st,
+            winners_st=dict(query=sj_s, match=sj_t[ic_st[:, 0]], valid=mc_st[:, 0] & kpv_s))
+    v_any_s = kpv_s & torch.stack([v for _f, v in levels_s]).any(0)
+    v_any_t = kpv_t & torch.stack([v for _f, v in levels_t]).any(0)
+    # cluster matching overwrites the density at every keypoint row (see
+    # _feature_scale_route)
+    dens = torch.zeros((N_all,), dtype=torch.float32, device=dev)
+    kc = max(2, min(cfg.cluster_k, n_kp_s - 1, n_kp_t - 1))
+    out = _compact_match_corr_stage(None, None, v_any_s, v_any_t, sj_s, sj_t, g_s, g_t, src_xyz,
+                                    tgt_xyz, dens, dens, distance_thr, cfg, kc,
+                                    cand=(ic_st, mc_st, ic_ts, mc_ts))
+    _t("match_corr")
+    return out
+
+
 def _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
     """The classic masked route (flagship.py:1671-1791, then the matching
     region :1857-1950): per side, ISS + the need-masked surface on the
@@ -780,20 +994,31 @@ def _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tg
                          None, None, s["density"], t["density"], radii, cfg, _t)
 
 
-def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
-    """The ISS routes (flagship.py:1191-1206).  With masked features: the
+def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t,
+               pyramid_debug=None):
+    """The ISS routes (flagship.py:1191-1209).  With masked features: the
     feature-scale route when cluster matching and feature_scale are on and
     the feature-scale voxel is at least 0.9 x the larger density (a silent
-    pre-gate in the JAX package too), else, or when one of its data gates
-    fails (with the JAX package's notice), the classic masked route.
-    Without: the unmasked route (the feature-scale route needs the masked
-    features and is skipped silently, as in the JAX package)."""
+    pre-gate in the JAX package too), and before it, with cfg.pyramid, the
+    staged pyramid, which leaves for the feature-scale route when one of
+    its gates fails; else, or when a data gate of the feature-scale route
+    fails (each with the JAX package's notice), the classic masked route.
+    Without: the unmasked route (the feature-scale route and the pyramid
+    need the masked features and are skipped silently, as in the JAX
+    package)."""
     if not cfg.masked_features:
         return _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt,
                                cfg, _t)
     density = max(radii[1], radii[2])
     voxel_f = float(math.sqrt(math.pi * radii[5]**2 / FEATURE_NR_POINTS))
-    if cfg.cluster_matching and cfg.feature_scale and voxel_f >= 0.9 * density:
+    fs_mode = cfg.cluster_matching and cfg.feature_scale and voxel_f >= 0.9 * density
+    if fs_mode and cfg.pyramid:
+        try:
+            return _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt,
+                                  cfg, _t, pyramid_debug)
+        except _GateFailed as e:
+            print(f"# staged pyramid -> single feature-scale path: {e}", flush=True)
+    if fs_mode:
         try:
             return _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src,
                                         vp_tgt, cfg, _t)
@@ -810,6 +1035,7 @@ def register_pair_staged(
     cfg: FlagshipConfig = FlagshipConfig(),
     return_correspondences: bool = False,
     stage_times: dict | None = None,
+    pyramid_debug: dict | None = None,
 ):
     """Register one padded pair on the tensors' device (the JAX
     register_pair_staged; cfg.use_iss picks the ISS or the keypoint-any
@@ -818,6 +1044,8 @@ def register_pair_staged(
     values beside its transformation tensor.
     When `stage_times` is a dict, each stage is synchronised and its wall
     seconds added there under the JAX package's LGR_STAGE_TIMING labels.
+    When `pyramid_debug` is a dict and the staged pyramid runs, it receives
+    that route's record (_pyramid_route; flagship.PYRAMID_DEBUG in JAX).
     Returns the JAX result dict (transformation, metric, inliers,
     converged, n_correspondences, iterations), plus with
     return_correspondences "correspondences" = (query rows, matched rows,
@@ -850,8 +1078,8 @@ def register_pair_staged(
     radii = tuple(float(v) for v in (normal_cell, density_cell_src, density_cell_tgt,
                                      iss_radius_src, iss_radius_tgt, feature_radius,
                                      distance_thr))
-    route = _iss_route if cfg.use_iss else _any_route
-    j, keep, thr = route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
+    args = (src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
+    j, keep, thr = _iss_route(*args, pyramid_debug) if cfg.use_iss else _any_route(*args)
     if cfg.alignment == "gror":
         res = _gror_stage(src_xyz, tgt_xyz[j], keep, radii[6], cfg)
         _t("gror")

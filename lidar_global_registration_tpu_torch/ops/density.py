@@ -110,6 +110,43 @@ def knn_nonself(pts: torch.Tensor, k: int, max_doublings: int = 8,
     return dist, idx
 
 
+def knn_window(xyz: torch.Tensor, valid: torch.Tensor, window: float, k: int) -> torch.Tensor:
+    """Distances f32[N, k] (ascending) from every valid row to its k nearest
+    valid points within `window` (d2 <= window^2), itself included; inf
+    where fewer lie in the window, and on invalid rows.
+
+    Exact, in passes over cell-list plans at window / 4, window / 2 and
+    window: a row whose k-th neighbour lies within a pass's radius has all
+    its k nearest in that plan's 27-cell stencil and is done; only the
+    rest are queried at the next radius (on a cloud of even spacing the
+    first pass, with a sixteenth of the window's candidates, finishes most
+    rows).  Each pass runs in query chunks of about cellgrid._CHUNK_PAIRS
+    candidates."""
+    dev = xyz.device
+    out = torch.full((xyz.shape[0], k), torch.inf, dtype=torch.float32, device=dev)
+    todo = torch.nonzero(valid).squeeze(1)
+    for radius in (0.25 * window, 0.5 * window, window):
+        if todo.numel() == 0:
+            break
+        plan = cellgrid.plan_grid(xyz, valid, radius)
+        r2 = cellgrid._f32_square(radius)
+        # cell order, so that a chunk's candidate rows are alike
+        slots, order = cellgrid.slot_of(plan)[todo].sort()
+        todo = todo[order]
+        parts = []
+        for _ab, sl in cellgrid._slot_chunks(plan, slots):
+            ids, ok = cellgrid.candidates_at(plan, sl)
+            d2 = cellgrid._pair_d2(plan, sl, ids)[3]
+            parts.append(_knn_topk(torch.where(ok & (d2 <= r2), d2, torch.inf), k)[0])
+        dist = torch.cat(parts).sqrt()
+        done = torch.isfinite(dist[:, k - 1])
+        if radius == window:
+            done = torch.ones_like(done)
+        out[todo[done]] = dist[done]
+        todo = todo[~done]
+    return out
+
+
 def smoothed_densities(pts: torch.Tensor, k: int = 2) -> torch.Tensor:
     """k-smoothed densities of `pts` [n, 3] (PCL self-inclusive k); 0 where a
     point has too few neighbours."""

@@ -25,11 +25,27 @@ def _rotation() -> np.ndarray:
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
 
 
-def _sample(tables, m: int, generator: torch.Generator, device) -> torch.Tensor:
-    origins, eus, evs, m_c, m_r, areas = (torch.as_tensor(np.asarray(a), device=device)
-                                          for a in tables)
+def patch_weights(tables, graded: bool) -> np.ndarray:
+    """Sampling probability of each patch (flat patches, then mounds): its
+    share of the area; graded, that share over 1 + (d / 15)^2 for the
+    distance d of the patch's centre to a scanner at (2, 2), a range
+    falloff that spreads the keypoints' feature radii over several octaves
+    (the pyramid's regime; __graft_entry__.py:181-187)."""
+    origins, eus, evs, m_c, _m_r, areas = (np.asarray(a, np.float64) for a in tables)
+    weights = areas / areas.sum()
+    if graded:
+        centres = np.concatenate([origins[:, :2] + 0.5 * (eus[:, :2] + evs[:, :2]), m_c])
+        dist = np.linalg.norm(centres - np.array([2.0, 2.0]), axis=1)
+        weights = weights / (1.0 + (dist / 15.0) ** 2)
+        weights = weights / weights.sum()
+    return weights
+
+
+def _sample(tables, weights, m: int, generator: torch.Generator, device) -> torch.Tensor:
+    origins, eus, evs, m_c, m_r, _areas = (torch.as_tensor(np.asarray(a), device=device)
+                                           for a in tables)
     n_flat = origins.shape[0]
-    cdf = torch.cumsum(areas.to(torch.float64) / areas.to(torch.float64).sum(), 0)
+    cdf = torch.cumsum(torch.as_tensor(weights, dtype=torch.float64, device=device), 0)
     u = torch.rand((m,), generator=generator, device=device, dtype=torch.float64)
     pid = torch.searchsorted(cdf, u, right=True).clamp_max(cdf.shape[0] - 1)
     uv = torch.rand((m, 2), generator=generator, device=device)
@@ -48,15 +64,17 @@ def _sample(tables, m: int, generator: torch.Generator, device) -> torch.Tensor:
     return pts + NOISE * noise
 
 
-def scene_pair(tables, n: int, extent: float, seed: int, device):
+def scene_pair(tables, n: int, extent: float, seed: int, device, graded: bool = False):
     """The scene sampled twice (seeds seed + 10 and seed + 20), the second
-    moved into its own frame b = (b_world - t) R.  Returns (a f32[n, 3],
+    moved into its own frame b = (b_world - t) R; `graded` samples the
+    patches with patch_weights' range falloff.  Returns (a f32[n, 3],
     b f32[n, 3], vp_a f32[3], vp_b f32[3], T_gt f32[4, 4]) with T_gt
     mapping a's frame onto b's, all on `device`."""
     out = []
+    weights = patch_weights(tables, graded)
     for s in (seed + 10, seed + 20):
         g = torch.Generator(device=device).manual_seed(s)
-        out.append(_sample(tables, n, g, device))
+        out.append(_sample(tables, weights, n, g, device))
     R = _rotation()
     t = np.array(OFFSET, np.float32)
     Rd = torch.from_numpy(R).to(device)

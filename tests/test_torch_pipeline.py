@@ -1,0 +1,323 @@
+"""The PyTorch port's front from a config to the staged path against the JAX
+package's: utils/config.expand_parameters (the parameter records field by
+field), models/pipeline.staged_envelope (the same accept / refuse and
+reasons, over the cases of tests/test_staged_cli_routing.py), and
+_align_staged / align_point_clouds on a 4,096-point pair with the
+reference's defaults (no feature_radius: the AUTO radius, the staged
+pyramid).  The one case that differs on purpose: the port accepts the AUTO
+radius on any device, the JAX package only with its cell-kernel backend
+(LGR_CELL_FPFH=force on the CPU).
+"""
+import contextlib
+import dataclasses
+import io
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lidar_global_registration_tpu import types as jtypes
+from lidar_global_registration_tpu.models import flagship as jfl
+from lidar_global_registration_tpu.models import pipeline as jpipe
+from lidar_global_registration_tpu.utils import config as jconfig
+from lidar_global_registration_tpu_torch import types as ttypes
+from lidar_global_registration_tpu_torch.models import flagship as tfl
+from lidar_global_registration_tpu_torch.models import pipeline as tpipe
+from lidar_global_registration_tpu_torch.ops.transform import rotation_translation_error
+from lidar_global_registration_tpu_torch.utils import config as tconfig
+from test_torch_e2e_pyramid import pair_inputs
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _same_record(t, j):
+    """Two dataclass records (or None) equal field by field."""
+    assert (t is None) == (j is None)
+    if t is None:
+        return
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b and type(a) is type(b), f.name
+
+
+def test_constants_equal_jax():
+    """The port's copy of the ids and defaults (types.py:29-86)."""
+    names = [n for n in dir(jtypes) if n.isupper() and not n.startswith("_")]
+    assert len(names) == 50
+    for n in names:
+        assert getattr(ttypes, n) == getattr(jtypes, n), n
+    _same_record(ttypes.AlignmentParameters(), jtypes.AlignmentParameters())
+    assert ttypes.Cloud.PAD_COORD == jtypes.Cloud.PAD_COORD
+
+
+SWEEPS = {
+    # tests/test_config_naming.py
+    "cartesian": ({"descriptor": ["fpfh", "shot"],
+                   "metric": ["correspondences", "uniformity", "combination"],
+                   "lrf": "gravity", "scale": [1.5, 2.0]}, 0.1, 0.2, False),
+    "defaults": ({}, 0.1, 0.25, True),
+    "overrides": ({"distance_thr": 0.7, "iss_radius": 0.3, "feature_radius": 0.5, "bf": False},
+                  0.1, 0.2, False),
+    # every key expand_parameters reads
+    "all_keys": ({"edge_thr": 0.9, "iteration": 1000, "confidence": 0.99, "randomness": 2,
+                  "n_samples": 4, "save_features": True, "block_size": 500,
+                  "hypothesis_batch": 1024, "bf16_matching": True,
+                  "alignment": ["ransac", "gror"], "keypoint": ["iss", "any"],
+                  "distance_thr": [0.5, 1.0], "feature_radius": [0, 2.5], "feature_nr": 300,
+                  "normal_nr": 20, "reestimate": False, "iss_radius": [0.3, 0.4],
+                  "descriptor": "fpfh", "lrf": "default", "metric": "correspondences",
+                  "matching": ["cluster", "lr"], "weight": "harris", "score": "mae",
+                  "scale": 1.5, "cluster_k": 30}, 0.2, 0.1, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SWEEPS))
+def test_expand_parameters_matches_jax(case):
+    node, ds, dt, normals = SWEEPS[case]
+    vp = np.array([1.0, 2.0, 3.0], np.float32)
+    want = jconfig.expand_parameters(jconfig.Config(dict(node)), ds, dt, normals, vp, -vp)
+    got = tconfig.expand_parameters(tconfig.Config(dict(node)), ds, dt, normals, vp, -vp)
+    assert len(got) == len(want) >= 1
+    for t, j in zip(got, want):
+        _same_record(t, j)
+    if case == "defaults":
+        assert got[0].feature_radius is None and got[0].descriptor_id == "shot"
+    if case == "all_keys":
+        assert len(got) == 2 ** 6 and got[-1].replace(seed=3).seed == 3
+
+
+def test_config_wrapper():
+    c = tconfig.Config({"a": 1, "b": [1, 2], "c": None,
+                        "tests": [{"test": {"x": 1}}, {"measure": {"y": 2}}]})
+    assert c.get("a") == 1 and c.get("c", 5) == 5 and c.get("zz") is None
+    assert c.get_vector("a") == [1] and c.get_vector("b") == [1, 2]
+    assert c.get_vector("c") is None and c.get_vector("c", 7) == [7]
+    assert [(k, t.node) for k, t in c.tests()] == [("test", {"x": 1}), ("measure", {"y": 2})]
+    assert tconfig.Config({}).tests() is None
+    c.set("a", 2)
+    assert c.get("a") == 2
+
+
+def _params(types, **kw):
+    base = dict(alignment_id="ransac", descriptor_id="fpfh", keypoint_id="any",
+                matching_id="lr", metric_id="correspondences", lrf_id="default",
+                feature_radius=3.0, distance_thr=1.0, iss_radius_src=0.5, iss_radius_tgt=0.5)
+    base.update(kw)
+    return types.AlignmentParameters(**base)
+
+
+ENVELOPE = {
+    # tests/test_staged_cli_routing.py:35-80
+    "dense_fpfh": dict(),
+    "shipped_shot": dict(keypoint_id="iss", matching_id="cluster", descriptor_id="shot",
+                         lrf_id="gravity", metric_id="uniformity"),
+    "gror": dict(alignment_id="gror", keypoint_id="iss", matching_id="cluster"),
+    "sweep_fields": dict(keypoint_id="iss", matching_id="cluster", scale_factor=1.5,
+                         randomness=2, cluster_k=30, n_samples=4, edge_thr_coef=0.9,
+                         confidence=0.99, hypothesis_batch=1024),
+    "rops": dict(descriptor_id="rops"),
+    "one_sided": dict(matching_id="one_sided"),
+    "closest_plane": dict(metric_id="closest_plane"),
+    "teaser": dict(alignment_id="teaser"),
+    "save_features": dict(save_features=True),
+    "file_normals": dict(normals_available=True),
+    "guess": dict(guess=np.eye(4, dtype=np.float32)),
+    "feature_nr": dict(feature_nr_points=99),
+    "normal_nr": dict(normal_nr_points=99),
+    "reestimate": dict(reestimate_frames=False),
+    "any_cluster": dict(matching_id="cluster"),
+    "shot_gt_lrf": dict(descriptor_id="shot", lrf_id="gt"),
+    "harris_keypoint": dict(keypoint_id="harris"),
+    # AUTO radius outside iss + cluster: refused by both
+    "auto_any": dict(feature_radius=None),
+    "auto_iss_lr": dict(feature_radius=None, keypoint_id="iss"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENVELOPE))
+def test_staged_envelope_matches_jax(case):
+    """The same verdict and reason, and field for field the same config."""
+    jcfg, jreason = jpipe.staged_envelope(_params(jtypes, **ENVELOPE[case]))
+    tcfg, treason = tpipe.staged_envelope(_params(ttypes, **ENVELOPE[case]))
+    assert treason == jreason
+    assert (tcfg is None) == (jcfg is None) == bool(jreason)
+    if tcfg is not None:
+        for f in dataclasses.fields(tcfg):
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+def test_envelope_auto_radius_is_the_pyramid(monkeypatch):
+    """feature_radius None with iss + cluster: the JAX package refuses it
+    off its cell-kernel backend and accepts it with the cells forced; the
+    port accepts it on any device, with the same config."""
+    kw = dict(feature_radius=None, keypoint_id="iss", matching_id="cluster")
+    monkeypatch.delenv("LGR_CELL_FPFH", raising=False)
+    jcfg, jreason = jpipe.staged_envelope(_params(jtypes, **kw))
+    assert jcfg is None and "pyramid" in jreason
+    monkeypatch.setenv("LGR_CELL_FPFH", "force")
+    jcfg, _ = jpipe.staged_envelope(_params(jtypes, **kw))
+    tcfg, treason = tpipe.staged_envelope(_params(ttypes, **kw))
+    assert treason == "" and tcfg.pyramid and jcfg.pyramid
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+def test_reference_defaults_reach_the_pyramid():
+    """A config that names nothing but the shipped gravity frames: ISS,
+    SHOT, cluster matching, uniformity, the AUTO radius -> pyramid=True."""
+    (p,) = tconfig.expand_parameters(tconfig.Config({"lrf": "gravity"}), 0.1, 0.1, False)
+    cfg, reason = tpipe.staged_envelope(p)
+    assert reason == ""
+    assert (cfg.pyramid, cfg.descriptor, cfg.lrf, cfg.cluster_matching, cfg.metric, cfg.rounds,
+            cfg.use_iss, cfg.alignment) == (True, "shot", "gravity", True, "uniformity", 64,
+                                            True, "ransac")
+    (p,) = tconfig.expand_parameters(tconfig.Config({}), 0.1, 0.1, False)
+    assert tpipe.staged_envelope(p)[0].lrf == "default"
+
+
+# ---------------------------------------------------------------------------
+# _align_staged / align_point_clouds
+# ---------------------------------------------------------------------------
+DENSITY = 0.15
+
+
+@pytest.fixture(scope="module")
+def aligned():
+    """The graded pair of tests/test_torch_e2e_pyramid.py through both
+    packages' align_point_clouds with the reference's defaults (+ gravity
+    frames), unequal capacities, and a spy on register_pair_staged."""
+    a, b, vp_a, vp_b, T_gt = pair_inputs()
+    node = {"lrf": "gravity", "hypothesis_batch": 1024}
+    out = {"T_gt": T_gt, "a": a, "b": b}
+    for name, types, config, pipe, fl in (("jax", jtypes, jconfig, jpipe, jfl),
+                                          ("port", ttypes, tconfig, tpipe, tfl)):
+        (p,) = config.expand_parameters(config.Config(dict(node)), DENSITY, DENSITY, False,
+                                        vp_a, vp_b)
+        src = types.Cloud.from_numpy(a)
+        tgt = types.Cloud.from_numpy(b, capacity=4224)
+        calls = []
+        orig = fl.register_pair_staged
+        log = io.StringIO()
+        with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log):
+            mp.setenv("LGR_CELL_FPFH", "force")
+            target = pipe if name == "port" else fl  # the port binds the name at import
+            mp.setattr(target, "register_pair_staged",
+                       lambda *args, _o=orig, **kw: (calls.append((args, kw)), _o(*args, **kw))[1])
+            kw = dict(device="cpu") if name == "port" else {}
+            res = pipe.align_point_clouds(src, tgt, p, save_artifacts=False,
+                                          density_src=DENSITY, density_tgt=DENSITY, **kw)
+        out[name] = dict(res=res, calls=calls, log=log.getvalue(), params=p)
+    return out
+
+
+def test_align_staged_radii_equal_jax(aligned):
+    (jargs, jkw), = aligned["jax"]["calls"]
+    (targs, tkw), = aligned["port"]["calls"]
+    # normal_cell, densities, ISS radii, the AUTO feature radius, distance_thr
+    assert [float(v) for v in targs[5:12]] == [float(v) for v in jargs[5:12]]
+    assert targs[10] == pytest.approx(np.sqrt(352 * DENSITY ** 2 / np.pi))
+    assert tkw["cfg"].pyramid and jkw["cfg"].pyramid and tkw["return_correspondences"]
+    for f in dataclasses.fields(tkw["cfg"]):
+        assert getattr(tkw["cfg"], f.name) == getattr(jkw["cfg"], f.name), f.name
+    # both sides padded to one capacity with PAD_COORD, invalid
+    for x, v in ((targs[0], targs[1]), (targs[2], targs[3])):
+        assert x.shape == (4224, 3) and int(v.sum()) == 4096
+        assert bool((x[~v] == ttypes.Cloud.PAD_COORD).all())
+    np.testing.assert_array_equal(tkw["vp_src"].numpy(), np.asarray(jkw["vp_src"]))
+    np.testing.assert_array_equal(tkw["vp_tgt"].numpy(), np.asarray(jkw["vp_tgt"]))
+
+
+def test_align_staged_results(aligned):
+    thr = aligned["port"]["params"].distance_thr
+    assert thr == pytest.approx(4 * DENSITY)
+    for name in ("jax", "port"):
+        res = aligned[name]["res"]
+        assert "->" not in aligned[name]["log"], aligned[name]["log"]  # no gate notice
+        r, t = rotation_translation_error(torch.as_tensor(np.array(res.transformation)),
+                                          torch.from_numpy(aligned["T_gt"]))
+        assert res.converged and float(r) < 0.05 and float(t) < thr, (name, float(r), float(t))
+        assert res.transformation.dtype == np.float32 and res.transformation.shape == (4, 4)
+        assert res.time_cs == 0.0 and res.time_te > 0 and res.iterations > 0
+        assert 0.3 < res.metric <= 1.0
+    res = aligned["port"]["res"]
+    assert isinstance(res, ttypes.AlignmentResult) and isinstance(res.src, ttypes.Cloud)
+    c = res.correspondences
+    ok = c.valid.numpy()
+    assert ok.sum() > 10 and c.capacity == ok.size
+    q, m = c.query.numpy()[ok], c.match.numpy()[ok]
+    assert q.min() >= 0 and q.max() < 4096 and m.min() >= 0 and m.max() < 4096
+    th = c.threshold.numpy()[ok]
+    assert (th > 0).all() and (th <= thr + 1e-6).all() and not c.distance.any()
+    # the exported pairs are geometrically the same point of the scene
+    moved = aligned["a"][q] @ aligned["T_gt"][:3, :3].T + aligned["T_gt"][:3, 3]
+    assert np.mean(np.linalg.norm(moved - aligned["b"][m], axis=1) < thr) > 0.3
+    nj = int(np.asarray(aligned["jax"]["res"].correspondences.valid).sum())
+    assert abs(int(ok.sum()) - nj) <= 0.2 * nj
+
+
+def _tiny_clouds():
+    x = np.random.default_rng(0).uniform(0, 5, size=(200, 3)).astype(np.float32)
+    return ttypes.Cloud.from_numpy(x), ttypes.Cloud.from_numpy(x.copy())
+
+
+@pytest.mark.parametrize("case,item", [
+    (dict(matching_id="one_sided"), "Host-path ops"),
+    (dict(descriptor_id="usc"), "Host-path ops"),
+    (dict(alignment_id="teaser"), "Host-path ops"),
+])
+def test_outside_the_envelope_raises(case, item):
+    """The JAX package prints the reason and takes its host pyramid; the
+    port raises with the reason and the item that ports that path."""
+    src, tgt = _tiny_clouds()
+    _cfg, reason = tpipe.staged_envelope(_params(ttypes, **case))
+    with pytest.raises(NotImplementedError, match=item) as e:
+        tpipe.align_point_clouds(src, tgt, _params(ttypes, **case), save_artifacts=False,
+                                 device="cpu")
+    assert reason and reason in str(e.value) and "ROADMAP" in str(e.value)
+
+
+def test_preloaded_correspondences_and_artifacts_raise():
+    src, tgt = _tiny_clouds()
+    z = torch.zeros(4)
+    corr = ttypes.Correspondences(z.long(), z.long(), z, z, z.bool())
+    with pytest.raises(NotImplementedError, match="Host-path ops"):
+        tpipe.align_point_clouds(src, tgt, _params(ttypes), save_artifacts=False,
+                                 correspondences=corr, device="cpu")
+    with pytest.raises(NotImplementedError, match="Host pipeline and CLI"):
+        tpipe.align_point_clouds(src, tgt, _params(ttypes), device="cpu")
+
+
+def test_cloud_from_numpy():
+    x = np.arange(15, dtype=np.float64).reshape(5, 3)
+    jc = jtypes.Cloud.from_numpy(x, normal=x / 10, weight=np.arange(5))
+    tc = ttypes.Cloud.from_numpy(x, normal=x / 10, weight=np.arange(5))
+    assert tc.capacity == jc.capacity == 128
+    for f in ("xyz", "normal", "weight", "curvature", "valid"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)))
+    assert ttypes.Cloud.from_numpy(x, capacity=7).capacity == 7
+    with pytest.raises(ValueError, match="capacity"):
+        ttypes.Cloud.from_numpy(x, capacity=3)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every .py of the port and chip_smoke.py: no import of jax or of
+    lidar_global_registration_tpu (the name without _torch)."""
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|lidar_global_registration_tpu)(?:[.\s]|$)", re.M)
+    files = sorted((ROOT / "lidar_global_registration_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+    assert pattern.search("from lidar_global_registration_tpu.types import Cloud")
+    assert pattern.search("    import jax.numpy as jnp")
+    assert not pattern.search("from lidar_global_registration_tpu_torch.types import Cloud")

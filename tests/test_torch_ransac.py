@@ -180,6 +180,8 @@ def test_config_from_jax_round_trip():
     dict(use_iss=False, alignment="gror"),
     dict(alignment="gror"),  # GROR on the ISS routes
     dict(masked_features=False, descriptor="shot", alignment="gror"),
+    dict(pyramid=True, scale_factor=1.5, pyramid_randomness=2),  # the staged pyramid
+    dict(use_iss=False, pyramid=True),  # no pyramid without ISS: ignored, as in JAX
 ])
 def test_config_from_jax_accepts_routes(change):
     """The staged envelope's settings (pipeline.py:151-166) convert field
@@ -191,7 +193,6 @@ def test_config_from_jax_accepts_routes(change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_iss=False, pyramid=True),
     dict(use_iss=False, bf16_matching=True),
     dict(descriptor="shot", lrf="gt"),  # ground-truth SHOT frames
     dict(use_iss=False, use_cell_fpfh=False),
