@@ -58,7 +58,8 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       (SHOT, gravity frames), which comes out of the port's front (Config ->
       expand_parameters -> staged_envelope), warm-up + 3 repeats each under
       the success rule, once through align_point_clouds, and the vote and
-      the bucket query on the card against the CPU; at 10,485,760 points
+      the bucket query on the card against the CPU; at 2,097,152 points (the
+      CLI phase runs the 10,485,760-point pair)
       once per descriptor, held to a finite pose, with K1 and the K5 / K6
       subset forms checked on the finest and the coarsest level's surface
       and K7 on one level's rows.  Each run prints its level ranges, matched
@@ -66,6 +67,17 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       match over at least 2 levels with no gate failed; the single
       feature-scale route runs once on each pair beside it.  A graded
       65,536-point pair through the kernels and the plain versions.
+  The command line (`python -m lidar_global_registration_tpu_torch`, one
+      process a command, as a user runs it, in chiprun_out/cli) on the graded
+      pair written as binary PLY scans with their ground truth and
+      viewpoints: at 1,048,576 points `alignment` with the reference's
+      default configuration and with FPFH at the fixed feature radius that the
+      printed density gives, `metric` on both caches and a `measure` test
+      (n_times 3); at 10,485,760 points `alignment` with FPFH and the AUTO
+      radius.  Each result row must be converged with r_err < 0.05 rad and
+      t_err and overlap_rmse < distance_thr, `metric`'s cached inliers within
+      1 % of the alignment's, `measure`'s success rate 1; each command's
+      step times, peak device memory and K1-K7 launches are printed.
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -73,7 +85,8 @@ error < distance_thr, bench.py:327).  Each route's launch counters are set
 to 0 just before its runs and must all have risen after them.
 
 The next-to-last line of standard output is a JSON object with one entry
-per kernel and shape: its launches on the main path, its error against the
+per kernel and shape: its launches on the main path (and, as
+launches_<route>, on the other routes and the CLI runs), its error against the
 plain version, its time, the plain version's, the bound (bound_ms,
 bound_by), the library yardstick (library_ms; K7's, null elsewhere) and
 for K5 the static SASS count of its pair body; the last is
@@ -103,6 +116,9 @@ N_LARGE = 262144
 N_ISS = 10485760  # the bench's flagship ISS row (bench.py:422-425)
 N_ISS_SMALL = 65536
 N_PYR = 1048576  # the bench's graded pyramid rows at full width
+# the pyramid phase's larger pair, cut from the bench's 10,485,760 points to
+# keep the whole run's time: the CLI phase registers the 10M pair that way
+N_PYR_LARGE = 2097152
 
 
 def log(*a):
@@ -1600,7 +1616,7 @@ def pyramid_phase(dev):
     reference's default configuration (SHOT, gravity frames; reached
     through Config -> expand_parameters -> staged_envelope), a warm-up and 3
     repeats each under the bench's success rule, and the default
-    configuration once through align_point_clouds; at 10,485,760 points
+    configuration once through align_point_clouds; at N_PYR_LARGE points
     once per descriptor, held to a finite pose, after the kernels were
     checked at that pair's level shapes.  Returns the kernel records and
     each run's launch counts."""
@@ -1613,7 +1629,7 @@ def pyramid_phase(dev):
     fpfh_k = (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda, nn_l2.nn_l2_cuda)
     shot_k = (cg.surface_cuda, *iss_k, nn_l2.nn_l2_cuda)
     records, launches = [], {}
-    for n, tag, repeats, rule in ((N_PYR, "1m", REPEATS, True), (N_ISS, "10m", 1, False)):
+    for n, tag, repeats, rule in ((N_PYR, "1m", REPEATS, True), (N_PYR_LARGE, "2m", 1, False)):
         t0 = time.perf_counter()
         S = iss_setup(dev, n, graded=True)
         torch.cuda.synchronize()
@@ -1638,6 +1654,217 @@ def pyramid_phase(dev):
         del S
         torch.cuda.empty_cache()
     return records, launches
+
+
+# the wrapper (launch counter) of the kernel form that each record holds
+WRAPPER_OF = {
+    **dict.fromkeys(("surface", "surface_fs", "surface_pn", "surface_pyr_fine",
+                     "surface_pyr_coarse"), "surface_cuda"),
+    "surface_at": "surface_at_cuda",
+    **{k + s: k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms") for s in ("", "_pn")},
+    **dict.fromkeys(("spfh", "spfh_262k", "spfh_work_full"), "spfh_cuda"),
+    **dict.fromkeys(("spfh_at", "spfh_at_classic", "spfh_at_pyr_fine", "spfh_at_pyr_coarse"),
+                    "spfh_at_cuda"),
+    **dict.fromkeys(("combine", "combine_262k", "combine_work_full"), "combine_cuda"),
+    **dict.fromkeys(("combine_at", "combine_at_classic", "combine_at_pyr_fine",
+                     "combine_at_pyr_coarse"), "combine_at_cuda"),
+    **dict.fromkeys(("nn_l2", "nn_l2_262k", "nn_l2_d352_64k", "nn_l2_iss", "nn_l2_d352",
+                     "nn_l2_pyr"), "nn_l2_cuda"),
+}
+
+CLI_DIR = ROOT / "chiprun_out" / "cli"
+CLI_TIMEOUT = 600  # seconds for one command of the CLI phase
+# the wrappers of K1-K7 on the CLI path (K1 full, K5 `kp`, K6 `kp_rows`), and
+# the forms it never runs (K1's slot list, K5's and K6's full passes)
+CLI_WRAPPERS = (("surface", "surface_cuda"), ("iss_count", "iss_count_cuda"),
+                ("iss_saliency", "iss_saliency_cuda"), ("iss_nms", "iss_nms_cuda"),
+                ("spfh", "spfh_at_cuda"), ("combine", "combine_at_cuda"), ("nn_l2", "nn_l2_cuda"))
+CLI_OFF = ("surface_at_cuda", "spfh_cuda", "combine_cuda")
+
+
+def write_cli_scene(dev, n: int, tag: str) -> Path:
+    """The graded bench pair of n points a side as the loader reads it: two
+    binary PLY scans, ground_truth.csv (pose_tgt = inv(T_gt), pose_src = I,
+    so GT = inv(pose_tgt) @ pose_src = T_gt) and viewpoints.csv, written by
+    the port's own writers into a fresh directory.  Returns it."""
+    import shutil
+
+    from lidar_global_registration_tpu_torch.utils.io import save_transformation, write_ply
+
+    a, b, vp_a, vp_b, T_gt = iss_scene(n, dev, graded=True)
+    d = CLI_DIR / tag
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    write_ply(str(d / "scanA.ply"), a.cpu().numpy())
+    write_ply(str(d / "scanB.ply"), b.cpu().numpy())
+    T = T_gt.cpu().numpy().astype(np.float64)
+    save_transformation(str(d / "ground_truth.csv"), "scanA.ply", np.eye(4, dtype=np.float32))
+    save_transformation(str(d / "ground_truth.csv"), "scanB.ply",
+                        np.linalg.inv(T).astype(np.float32))
+    with open(d / "viewpoints.csv", "w") as f:
+        f.write("reading,x,y,z\n")
+        for name, vp in (("scanA.ply", vp_a), ("scanB.ply", vp_b)):
+            x, y, z = (float(v) for v in vp.cpu())
+            f.write(f"{name},{x!r},{y!r},{z!r}\n")
+    return d
+
+
+CLI_SCENE = ("source: scanA.ply\ntarget: scanB.ply\nground_truth: ground_truth.csv\n"
+             "viewpoints: viewpoints.csv\nhypothesis_batch: 1024\n")
+
+
+def cli_config(d: Path, name: str, body: str, tests: str | None = None) -> str:
+    """Write d/name.yaml: the scene's keys plus `body`, or a `tests:` list
+    with one entry of type `tests` holding them.  Returns the file name."""
+    text = CLI_SCENE + body
+    if tests is not None:
+        text = f"tests:\n    - {tests}:\n" + "".join(f"        {ln}\n"
+                                                    for ln in text.strip().splitlines())
+    (d / f"{name}.yaml").write_text(text)
+    return f"{name}.yaml"
+
+
+def run_cli(d: Path, command: str, config: str, label: str) -> dict:
+    """`python -m lidar_global_registration_tpu_torch <command> <config>` in
+    d, as a user runs it.  Its whole output goes to d/<label>.log; its step
+    lines are echoed.  A non-zero exit fails the phase.  Returns the
+    command's seconds, its kernel launches and the preprocessed densities it
+    printed."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lidar_global_registration_tpu_torch", command,
+                           config], cwd=d, env=env, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT)
+    dt = time.perf_counter() - t0
+    (d / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        raise AssertionError(f"CLI {label}: exit code {proc.returncode}")
+    launches, densities = {}, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("# "):
+            log(f"#   {label}: {line[2:]}")
+        m = re.match(r"# device: .* launches (\{.*\})$", line)
+        if m:
+            launches = json.loads(m.group(1))
+        m = re.match(r"# load .* density [\d.]+ s \(([\d.e+-]+)\)$", line)
+        if m:
+            densities.append(float(m.group(1)))
+    log(f"#   {label}: {dt:.2f} s command")
+    return dict(seconds=dt, launches=launches, densities=densities)
+
+
+def cli_results(d: Path, n_rows: int) -> list[dict]:
+    """The last n_rows rows of d's test_results.csv, each held to the
+    bench's success rule and the reference's overlap rule: converged,
+    r_err < 0.05 rad, t_err < distance_thr, overlap_rmse < distance_thr."""
+    lines = (d / "data/debug/test_results.csv").read_text().strip().splitlines()
+    header = lines[0].split(",")
+    assert len(header) == 38, header
+    rows = [dict(zip(header, ln.split(","))) for ln in lines[1:]][-n_rows:]
+    for r in rows:
+        thr = float(r["distance_thr"])
+        log(f"#   result {r['descriptor']} fr={r['feature_radius'] or 'auto'}: converged="
+            f"{r['converged']} r_err={r['r_err']} t_err={r['t_err']} overlap_rmse="
+            f"{r['overlap_rmse']} thr={thr:g} inliers={r['inliers']}/{r['correspondences']} "
+            f"overlap={r['overlap']} time_te={r['time_te']}")
+        assert r["converged"] == "1" and float(r["r_err"]) < R_ERR_MAX, r
+        assert float(r["t_err"]) < thr and float(r["overlap_rmse"]) < thr, r
+    return rows
+
+
+def cli_phase(dev):
+    """The port's command line on the graded bench pair, as a user runs it
+    (`python -m lidar_global_registration_tpu_torch`, one process a
+    command, in a fresh directory under chiprun_out/cli): at 1,048,576
+    points a side `alignment` with the reference's default configuration
+    (SHOT, the AUTO radius: the staged pyramid) and with FPFH at the fixed
+    feature radius that the printed density gives (the feature-scale
+    route), `metric` on both caches, and a `measure` test of the FPFH
+    setting, n_times 3; at 10,485,760 points `alignment` with FPFH and the
+    AUTO radius.  Every result row is held to the success rules, `metric`'s
+    cached inliers to the alignment's, `measure` to a success rate of 1.
+    The scans are deleted afterwards.  Returns each run's kernel launches."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
+
+    launches = {}
+    fpfh = "descriptor: fpfh\nkeypoint: iss\nmatching: cluster\nmetric: uniformity\n"
+    need = {"shot": [w for k, w in CLI_WRAPPERS if k not in ("spfh", "combine")],
+            "fpfh": [w for _k, w in CLI_WRAPPERS]}
+    for n, tag in ((N_PYR, "1m"), (N_ISS, "10m")):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        d = write_cli_scene(dev, n, tag)
+        log(f"# CLI pair n={n}: scans written in {time.perf_counter() - t0:.2f} s "
+            f"({(d / 'scanA.ply').stat().st_size / 2**20:.0f} MiB a scan)")
+        try:
+            runs = []
+            if tag == "1m":
+                shot = cli_config(d, "shot", "lrf: gravity\n")
+                runs.append(("shot", run_cli(d, "alignment", shot, "alignment_shot_1m")))
+                dmax = max(runs[-1][1]["densities"])
+                fr = float(np.sqrt(FEATURE_NR_POINTS * dmax * dmax / np.pi))
+                log(f"#   feature radius {fr:.6g} from the printed density {dmax:.6g}")
+                body = fpfh + f"feature_radius: {fr!r}\n"
+                runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh", body),
+                                             "alignment_fpfh_1m")))
+                rows = cli_results(d, 2)
+                (d / "both.yaml").write_text("tests:\n" + "".join(
+                    "    - test:\n" + "".join(f"        {ln}\n" for ln in
+                                              (d / c).read_text().strip().splitlines())
+                    for c in (shot, "fpfh.yaml")))
+                run_cli(d, "metric", "both.yaml", "metric_1m")
+                cli_metrics(d, rows)
+                runs.append(("fpfh", run_cli(d, "alignment",
+                                             cli_config(d, "measure", body + "n_times: 3\n",
+                                                        tests="measure"), "measure_1m")))
+                cli_measure(d)
+            else:
+                runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh_auto", fpfh),
+                                             "alignment_fpfh_10m")))
+                cli_results(d, 1)
+        finally:
+            for f in d.glob("*.ply"):
+                f.unlink()
+        for kind, run in runs:
+            label = f"cli_{kind}_{tag}" + ("_measure" if f"cli_{kind}_{tag}" in launches else "")
+            got = run["launches"]
+            assert all(got.get(w, 0) > 0 for w in need[kind]), f"{label}: a kernel never ran: {got}"
+            assert all(got[w] == 0 for w in CLI_OFF), f"{label}: a form off the CLI path ran: {got}"
+            launches[label] = got
+    log(f"# launches in the CLI runs: {launches}")
+    return launches
+
+
+def cli_metrics(d: Path, rows: list[dict]) -> None:
+    """`metric` re-scored each cached transform with the correspondence and
+    closest-plane metrics (the runs used uniformity): the cached transform's
+    correspondence inliers within 1 % of the alignment's inliers (the cache
+    prints the thresholds with %g, which can move a pair at the boundary),
+    positive closest-plane inliers for the transform and for the GT."""
+    lines = (d / "data/debug/test_metrics.csv").read_text().strip().splitlines()
+    header = lines[0].split(",")
+    got = [dict(zip(header, ln.split(","))) for ln in lines[1:]]
+    assert len(got) == len(rows) == 2
+    for m, r in zip(got, rows):
+        log(f"#   metric {r['descriptor']}: inliers_corr={m['inliers_corr']} (alignment "
+            f"{r['inliers']}) inliers_icp={m['inliers_icp']} inliers_corr_gt="
+            f"{m['inliers_corr_gt']} inliers_icp_gt={m['inliers_icp_gt']}")
+        assert abs(int(m["inliers_corr"]) - int(r["inliers"])) <= 0.01 * int(r["inliers"]), m
+        assert int(m["inliers_icp"]) > 0 and int(m["inliers_icp_gt"]) > 0, m
+
+
+def cli_measure(d: Path) -> None:
+    lines = (d / "data/debug/test_measurements.csv").read_text().strip().splitlines()
+    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+    log(f"#   measure: success_rate={row['success_rate']} mae={row['mae']} mte={row['mte']} "
+        f"mrmse={row['mrmse']} mtime={row['mtime']} stime={row['stime']}")
+    assert float(row["success_rate"]) == 1.0, row
 
 
 def iss_phase(dev):
@@ -1771,6 +1998,11 @@ def main() -> int:
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"# gpu: {gpu}")
 
+    t_run = time.perf_counter()
+
+    def elapsed(done: str):
+        log(f"# elapsed {time.perf_counter() - t_run:.1f} s: {done}")
+
     path = kernels.library_path()
     nvcc_s, ptxas = kernels.build(path, verbose=True)
     kernels.library()
@@ -1867,44 +2099,45 @@ def main() -> int:
     records += large_records
 
     # the ISS routes on the 10M pair, then small pairs via both paths
+    elapsed("keypoint-any routes")
     iss_records, iss_launches = iss_phase(dev)
-    counts = {"surface": "surface_cuda", "nn_l2": "nn_l2_cuda"}
+    elapsed("ISS phase")
     for rec in records:  # K1 and K7 run on the ISS routes too
-        if rec["name"] in counts:
+        if rec["name"] in ("surface", "nn_l2"):
             for route, got in iss_launches.items():
-                rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
-    own = {"surface_at": ("masked_fpfh", "surface_at_cuda"),
-           "surface_fs": ("fpfh", "surface_cuda"),
-           "nn_l2_d352": ("shot", "nn_l2_cuda"),
-           "nn_l2_iss": ("fpfh", "nn_l2_cuda"),
-           "iss_count_pn": ("masked_fpfh", "iss_count_cuda"),
-           "iss_saliency_pn": ("masked_fpfh", "iss_saliency_cuda"),
-           "iss_nms_pn": ("masked_fpfh", "iss_nms_cuda"),
-           "spfh_at_classic": ("masked_fpfh", "spfh_at_cuda"),
-           "combine_at_classic": ("masked_fpfh", "combine_at_cuda"),
-           "surface_pn": ("unmasked_fpfh", "surface_cuda"),
-           "spfh_work_full": ("unmasked_fpfh", "spfh_cuda"),
-           "combine_work_full": ("unmasked_fpfh", "combine_cuda")}
+                rec[f"launches_{route}"] = got.get(WRAPPER_OF[rec["name"]], 0)
+    own = {"surface_at": "masked_fpfh", "nn_l2_d352": "shot", "iss_count_pn": "masked_fpfh",
+           "iss_saliency_pn": "masked_fpfh", "iss_nms_pn": "masked_fpfh",
+           "spfh_at_classic": "masked_fpfh", "combine_at_classic": "masked_fpfh",
+           "surface_pn": "unmasked_fpfh", "spfh_work_full": "unmasked_fpfh",
+           "combine_work_full": "unmasked_fpfh"}
     for rec in iss_records:
-        route, key = own.get(rec["name"], ("fpfh", rec["name"] + "_cuda"))
-        rec["launches"] = iss_launches[route][key]
+        rec["launches"] = iss_launches[own.get(rec["name"], "fpfh")][WRAPPER_OF[rec["name"]]]
     records += iss_records
 
     # the staged pyramid on the graded 1M and 10M pairs
     pyr_records, pyr_launches = pyramid_phase(dev)
+    elapsed("pyramid phase")
     for rec in pyr_records:
-        key = "nn_l2_cuda" if rec["name"] == "nn_l2_pyr" else (
-            rec["name"].split("_pyr_")[0] + "_cuda")
-        rec["launches"] = pyr_launches["pyr_fpfh_10m"][key]
+        rec["launches"] = pyr_launches["pyr_fpfh_2m"][WRAPPER_OF[rec["name"]]]
     for rec in records:
-        if rec["name"] in counts:
+        if rec["name"] in ("surface", "nn_l2"):
             for route, got in pyr_launches.items():
-                rec[f"launches_{route}"] = got.get(counts[rec["name"]], 0)
+                rec[f"launches_{route}"] = got.get(WRAPPER_OF[rec["name"]], 0)
     records += pyr_records
+
+    # the command line, as a user runs it, on the graded 1M and 10M pairs:
+    # each record reads its own form's counter (0 for the forms off the path)
+    cli_launches = cli_phase(dev)
+    elapsed("CLI phase")
+    for rec in records:
+        for route, got in cli_launches.items():
+            rec[f"launches_{route}"] = got[WRAPPER_OF[rec["name"]]]
     iss_small_pair(dev, "ISS")
     iss_small_pair(dev, "pyramid", graded=True, min_share=0.9, pyramid=True)
     iss_small_pair(dev, "SHOT", **SHOT_CFG)
     iss_small_pair(dev, "GROR", alignment="gror")
+    elapsed("small pairs")
 
     log(f"{gpu}")
     log(json.dumps({"kernels": records}))

@@ -8,7 +8,10 @@ Covered so far: every route of `models.flagship.register_pair_staged` (ISS
 keypoints: the staged multi-scale pyramid, the feature-scale route, the
 classic masked and the unmasked route, with FPFH or SHOT, cluster matching,
 RANSAC or GROR; keypoint-any with mutual 1-NN), with the CUDA kernels under
-`csrc/` (built at first use by `kernels.py`), and the front that leads a
-config to it: `utils.config` (Config, expand_parameters) and
-`models.pipeline` (staged_envelope, align_point_clouds).
+`csrc/` (built at first use by `kernels.py`), the front that leads a
+config to it (`utils.config`, `models.pipeline`), and the host pipeline
+and command line around it: `python -m lidar_global_registration_tpu_torch
+<alignment|metric> config.yaml` reads the PLY pair, preprocesses it on the
+card, registers it, writes the reference's CSV artifacts and analyses the
+result (`cli`, `models.pipeline`, `analysis`, `utils.io`, `utils.naming`).
 """

@@ -16,26 +16,45 @@ the packed JAX route does, so the centroid's rounding stays near
 ulp(voxel) whatever the scene's extent.  The residual sums accumulate in
 float64 (the CUDA `index_add_` adds atomically in no fixed order; in
 float64 the order does not show after the cast back to float32).
+
+voxel_downsample (the loader's fine downsample, downsample.py:288-352) is
+the same body with each point weighted by its accumulated weight and the
+normals averaged too; dedup_points (the loader's exact-duplicate removal)
+sorts the coordinates' bit patterns.
 """
 from __future__ import annotations
 
 import torch
 
+from lidar_global_registration_tpu_torch.types import Cloud
+
 _BIG = 3.0e37
+
+
+def aabb(xyz: torch.Tensor, valid: torch.Tensor):
+    """Masked axis-aligned bounding box (lo f32[3], hi f32[3]) of the valid
+    rows (downsample.aabb; +-3e37 for an empty cloud)."""
+    lo = torch.where(valid[:, None], xyz, _BIG).amin(0)
+    hi = torch.where(valid[:, None], xyz, -_BIG).amax(0)
+    return lo, hi
 
 
 def masked_min(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per-axis min of the valid rows (0 for an empty cloud), float32."""
-    lo = torch.where(valid[:, None], xyz, _BIG).amin(0)
+    lo = aabb(xyz, valid)[0]
     return torch.where(lo < _BIG, lo, 0.0)
 
 
 def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
-               origin: torch.Tensor):
+               origin: torch.Tensor, weight: torch.Tensor | None = None,
+               normal: torch.Tensor | None = None):
     """Shared body: (out_xyz f32[N, 3] front-compacted centroids (0.0 on
     the rows past them), out_valid bool[N], row_of i64[N] output row of
-    each valid input row (0 elsewhere), n_out i64[] on the device: nothing
-    here reads the device from the host)."""
+    each valid input row (0 elsewhere), n_out i64[] on the device, acc):
+    nothing here reads the device from the host.  With `weight` f32[N]
+    (positive on valid rows) each point counts by its weight, and acc =
+    (summed weight f32[N], weighted mean normal f32[N, 3] or None when no
+    `normal` is given); without it points count 1 and acc is None."""
     dev = xyz.device
     N = xyz.shape[0]
     vox = torch.tensor(voxel, dtype=torch.float32, device=dev)
@@ -51,21 +70,33 @@ def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
     seg = torch.cumsum(first.to(torch.int64), 0) - 1
     svalid = valid[order]
     n_out = (first & svalid).sum()
+    w = svalid.to(torch.float64)
+    if weight is not None:
+        w = torch.where(svalid, weight[order].to(torch.float64), 0.0)
     # residuals against the voxel base corner, summed per run
     cs = c[order].to(torch.float32)
     base = origin[None, :] + cs * vox
     res = torch.where(svalid[:, None], xyz[order] - base, 0.0).to(torch.float64)
+    if weight is not None:
+        res = res * w[:, None]
     sums = torch.zeros((N, 3), dtype=torch.float64, device=dev).index_add_(0, seg, res)
-    cnt = torch.zeros((N,), dtype=torch.float64, device=dev).index_add_(
-        0, seg, svalid.to(torch.float64))
+    cnt = torch.zeros((N,), dtype=torch.float64, device=dev).index_add_(0, seg, w)
     base_run = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     base_run[seg] = base  # every member of a run writes the same corner
     out_valid = torch.arange(N, device=dev) < n_out
-    cent = base_run + (sums / cnt.clamp_min(1.0)[:, None]).to(torch.float32)
+    cent = base_run + (sums / cnt.clamp_min(1e-30)[:, None]).to(torch.float32)
     out_xyz = torch.where(out_valid[:, None], cent, 0.0)
     row_of = torch.zeros((N,), dtype=torch.int64, device=dev)
     row_of[order] = torch.where(svalid, seg, 0)
-    return out_xyz, out_valid, row_of, n_out
+    acc = None
+    if weight is not None:
+        nrm = None
+        if normal is not None:
+            nsum = torch.zeros((N, 3), dtype=torch.float64, device=dev).index_add_(
+                0, seg, normal[order].to(torch.float64) * w[:, None])
+            nrm = (nsum / cnt.clamp_min(1e-30)[:, None]).to(torch.float32)
+        acc = (cnt.to(torch.float32), nrm)
+    return out_xyz, out_valid, row_of, n_out, acc
 
 
 def voxel_centroids_map(xyz: torch.Tensor, valid: torch.Tensor, voxel: float):
@@ -76,7 +107,7 @@ def voxel_centroids_map(xyz: torch.Tensor, valid: torch.Tensor, voxel: float):
     out_valid bool[N], row_of i64[N], n_out i64[] on the device); rows
     past the n_out centroids hold 0.0."""
     vox = torch.tensor(voxel, dtype=torch.float32, device=xyz.device)
-    return _centroids(xyz, valid, voxel, masked_min(xyz, valid) - 0.5 * vox)
+    return _centroids(xyz, valid, voxel, masked_min(xyz, valid) - 0.5 * vox)[:4]
 
 
 def voxel_centroids_packed(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
@@ -86,5 +117,47 @@ def voxel_centroids_packed(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
     each run's first sorted slot for flagship._compact_xyz to compact, this
     one returns them compacted already).  Returns (out_xyz, out_valid,
     n_out) as voxel_centroids_map."""
-    out_xyz, out_valid, _row_of, n_out = _centroids(xyz, valid, voxel, origin)
+    out_xyz, out_valid, _row_of, n_out, _acc = _centroids(xyz, valid, voxel, origin)
     return out_xyz, out_valid, n_out
+
+
+def voxel_downsample(cloud: Cloud, voxel: float) -> Cloud:
+    """The loader's weighted voxel downsample into the same capacity
+    (downsample.voxel_downsample, downsample.cpp:5-41): the grid anchors at
+    the cloud's min - voxel / 2; each voxel averages its points' positions
+    and normals weighted by their accumulated `weight`, keeps the summed
+    weight, and renormalises the normal unless its norm is below 1e-5
+    (downsample.h:21-24).  Output rows in the JAX lexsort order (z major),
+    compacted to the front; padding rows hold PAD_COORD and zeros."""
+    vox = torch.tensor(voxel, dtype=torch.float32, device=cloud.xyz.device)
+    origin = masked_min(cloud.xyz, cloud.valid) - 0.5 * vox
+    out_xyz, out_valid, _row_of, _n, (acc_w, nrm) = _centroids(
+        cloud.xyz, cloud.valid, voxel, origin, cloud.weight, cloud.normal)
+    nn = nrm.square().sum(1, keepdim=True).sqrt()
+    nrm = nrm / torch.where(nn < 1e-5, 1.0, nn)
+    v = out_valid[:, None]
+    return Cloud(xyz=torch.where(v, out_xyz, Cloud.PAD_COORD), normal=torch.where(v, nrm, 0.0),
+                 weight=torch.where(out_valid, acc_w, 0.0),
+                 curvature=torch.zeros_like(acc_w), valid=out_valid)
+
+
+def dedup_points(xyz: torch.Tensor) -> torch.Tensor:
+    """Keep-mask bool[N] of the first occurrence of each exact xyz triple
+    (the loader's duplicate filter, common.cpp:417-427; the JAX package's
+    native.dedup_points).  Two stable sorts of the coordinates' int32 bit
+    patterns (z, then x and y packed in one int64) bring equal triples
+    together in row order; the lowest row of each run is kept.  Equality is
+    of bits: -0.0 and 0.0 differ here (== in the native filter)."""
+    n = xyz.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=xyz.device)
+    bits = xyz.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    xy = (bits[:, 0] << 32) | (bits[:, 1] & 0xFFFFFFFF)
+    order = torch.sort(bits[:, 2], stable=True)[1]
+    order = order[torch.sort(xy[order], stable=True)[1]]
+    sxy, sz = xy[order], bits[order, 2]
+    first = torch.ones((n,), dtype=torch.bool, device=xyz.device)
+    first[1:] = (sxy[1:] != sxy[:-1]) | (sz[1:] != sz[:-1])
+    keep = torch.zeros((n,), dtype=torch.bool, device=xyz.device)
+    keep[order] = first
+    return keep

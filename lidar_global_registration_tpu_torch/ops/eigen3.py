@@ -108,3 +108,13 @@ def eigh_sym3(A: torch.Tensor):
     v1 = _cross(v2, v0)
     v1 = v1 / _dot(v1, v1)[..., None].clamp_min(_EPS).sqrt()
     return eig * scale[..., None], torch.stack([v0, v1, v2], -1)
+
+
+def smallest_eigvec_sym3(A: torch.Tensor):
+    """(eigvals f32[..., 3] ascending, unit eigenvector f32[..., 3] of the
+    smallest) (eigen3.smallest_eigvec_sym3: the normal estimation's path,
+    one cross-product eigenvector)."""
+    scale = _scale(A)
+    B = A / scale[..., None, None]
+    eig = eigvals_sym3(A) / scale[..., None]
+    return eig * scale[..., None], _eigvec_for(B, eig[..., 0])

@@ -11,12 +11,18 @@ the position's own cell may be empty), every point of those columns is a
 candidate, and the k nearest within r are kept by an exact top-k.  Exact
 and uncapped, like the reference's radiusSearch and the JAX package's CPU
 path.
+
+knn (grid.knn over the cloud itself, as the normal estimation asks it) and
+nearest_within (grid.radius_neighbors with k = 1, as the analysis and the
+closest-plane metric ask it) are exact too, where the JAX package's capped
+cells (cell_cap = 64) drop points of overfull cells in cloud order.
 """
 from __future__ import annotations
 
 import torch
 
 from lidar_global_registration_tpu_torch.ops import cellgrid
+from lidar_global_registration_tpu_torch.ops.density import knn_nonself
 
 BIG = 3.0e38
 
@@ -58,3 +64,56 @@ def radius_neighbors(plan: cellgrid.GridPlan, queries: torch.Tensor, qvalid: tor
         dist[a:b, :kk] = torch.where(m, d2_sel.clamp_min(0.0).sqrt(), BIG)
         mask[a:b, :kk] = m
     return idx, dist, mask
+
+
+def knn(xyz: torch.Tensor, valid: torch.Tensor, k: int):
+    """The k nearest valid points of every valid row of the cloud, itself
+    first (grid.knn with include_self over the cloud's own grid, whose
+    27-cell envelope the JAX package grows until it holds the k-th
+    neighbour): exact, from ops/density.knn_nonself.  Returns (idx i64[N,
+    k] input rows, dist f32[N, k] ascending, mask bool[N, k]); masked
+    entries (invalid rows, clouds of fewer than k points) hold 0 and BIG."""
+    N = xyz.shape[0]
+    dev = xyz.device
+    rows = torch.nonzero(valid).squeeze(1)
+    idx = torch.zeros((N, k), dtype=torch.int64, device=dev)
+    dist = torch.full((N, k), BIG, dtype=torch.float32, device=dev)
+    d, j = knn_nonself(xyz[rows], k - 1)
+    ok = torch.isfinite(d)
+    idx[rows] = torch.cat([rows[:, None], torch.where(ok, rows[j], 0)], 1)
+    dist[rows] = torch.cat([torch.zeros_like(d[:, :1]), torch.where(ok, d, BIG)], 1)
+    mask = torch.zeros((N, k), dtype=torch.bool, device=dev)
+    mask[rows] = torch.cat([torch.ones_like(ok[:, :1]), ok], 1)
+    return idx, dist, mask
+
+
+def nearest_within(xyz: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
+                   qvalid: torch.Tensor, radius: float):
+    """The nearest valid point of the cloud within `radius` (d2 <= r2) of
+    each query position f32[M, 3] (grid.radius_neighbors(..., k=1)).
+    Exact, in passes at radius / 8, / 4, / 2 and radius, each over a plan
+    of that cell: a query whose nearest point lies within a pass's radius
+    is answered there (every point that near is in its stencil); only the
+    rest go on, so a dense cloud is searched with a few candidates a query.
+    Returns (idx i64[M], dist f32[M], found bool[M]); 0 and BIG where
+    nothing lies within `radius`."""
+    M = queries.shape[0]
+    dev = queries.device
+    idx = torch.zeros((M,), dtype=torch.int64, device=dev)
+    dist = torch.full((M,), BIG, dtype=torch.float32, device=dev)
+    found = torch.zeros((M,), dtype=torch.bool, device=dev)
+    todo = torch.nonzero(qvalid).squeeze(1)
+    if not bool(valid.any()):
+        return idx, dist, found
+    for f in (0.125, 0.25, 0.5, 1.0):
+        if todo.numel() == 0:
+            break
+        rho = radius * f
+        plan = cellgrid.plan_grid(xyz, valid, rho)
+        i, d, m = radius_neighbors(plan, queries[todo], torch.ones_like(todo, dtype=torch.bool),
+                                   rho, 1)
+        hit = m[:, 0]
+        rows = todo[hit]
+        idx[rows], dist[rows], found[rows] = i[hit, 0], d[hit, 0], True
+        todo = todo[~hit]
+    return idx, dist, found

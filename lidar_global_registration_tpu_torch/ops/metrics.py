@@ -1,9 +1,46 @@
-"""The parts of lidar_global_registration_tpu/ops/metrics.py the RANSAC
-stage reads: batched point transforms, the adaptive iteration budget and
-the uniformity score."""
+"""Metric estimators batched over a hypothesis axis
+(lidar_global_registration_tpu/ops/metrics.py): the score functions, the
+correspondence, uniformity and closest-plane metrics, the adaptive
+iteration budget, and the MetricContext that the analysis and the `metric`
+command score transforms with.
+
+Reference: include/metric.h + src/metric.cpp; the score functions match
+src/metric.cpp:55-81 (values relative to the per-correspondence adaptive
+threshold).
+"""
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
+
+from lidar_global_registration_tpu_torch.ops.grid import nearest_within
+from lidar_global_registration_tpu_torch.types import (
+    DIST_TO_PLANE_COEFFICIENT,
+    METRIC_CLOSEST_PLANE,
+    METRIC_COMBINATION,
+    METRIC_SCORE_CONSTANT,
+    METRIC_SCORE_EXP,
+    METRIC_SCORE_MAE,
+    METRIC_SCORE_MSE,
+    METRIC_UNIFORMITY,
+)
+
+BIG = 3.0e38
+
+
+def score_values(dist: torch.Tensor, thr, score_id: str) -> torch.Tensor:
+    """Per-inlier score (src/metric.cpp:55-81)."""
+    if score_id == METRIC_SCORE_MAE:
+        return (dist - thr).abs() / thr
+    if score_id == METRIC_SCORE_MSE:
+        return (dist - thr) * (dist - thr) / (thr * thr)
+    if score_id == METRIC_SCORE_EXP:
+        return torch.exp(-dist * dist / (2.0 * thr * thr))
+    if score_id != METRIC_SCORE_CONSTANT:
+        raise ValueError(f"unknown score function {score_id!r}")
+    return torch.ones_like(dist)
 
 
 def transform_points_soa(R: torch.Tensor, t: torch.Tensor, p: torch.Tensor):
@@ -66,3 +103,110 @@ def uniformity_entropy(mask: torch.Tensor, bins3: torch.Tensor) -> torch.Tensor:
         prod = prod * (h / log_bins)
     ent = prod.clamp_min(0.0).pow(1.0 / 3.0)
     return torch.where(n > 0, ent, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Correspondence inliers (CorrespondencesMetricEstimator, metric.cpp:125)
+# ---------------------------------------------------------------------------
+def corr_inlier_mask(R, t, p, q, thr, cvalid):
+    """R f32[B, 3, 3], t f32[B, 3]; p, q f32[M, 3] -> (mask bool[B, M],
+    dist f32[B, M]): inlier iff the moved p lies within its pair's thr."""
+    tx, ty, tz = transform_points_soa(R, t, p)
+    d2 = (tx - q[:, 0][None]) ** 2 + (ty - q[:, 1][None]) ** 2 + (tz - q[:, 2][None]) ** 2
+    dist = d2.clamp_min(0.0).sqrt()
+    return (dist < thr[None]) & cvalid[None], dist
+
+
+def corr_metric(R, t, p, q, thr, cvalid, score_id: str):
+    """metric = summed inlier score / number of correspondences; also the
+    inlier count, the inliers' rmse (BIG without inliers), mask and dist."""
+    mask, dist = corr_inlier_mask(R, t, p, q, thr, cvalid)
+    sv = score_values(dist, thr[None], score_id)
+    score = torch.where(mask, sv, 0.0).sum(1)
+    n_corr = cvalid.to(torch.float32).sum().clamp_min(1.0)
+    cnt = mask.sum(1)
+    sq = torch.where(mask, dist * dist, 0.0).sum(1)
+    rmse = torch.where(cnt > 0, (sq / cnt.clamp_min(1)).sqrt(), BIG)
+    return score / n_corr, cnt, rmse, mask, dist
+
+
+# ---------------------------------------------------------------------------
+# Closest-plane inliers (buildClosestPlaneInliers, metric.cpp:10-53)
+# ---------------------------------------------------------------------------
+def closest_plane_metric(R, t, sample_xyz, sample_valid, tgt_xyz, tgt_valid, tgt_normal,
+                         inlier_threshold: float, score_id: str, denom):
+    """Point-to-nearest-neighbour-plane scoring of B transforms x S samples:
+    each moved sample takes its nearest target point within 2 x
+    inlier_threshold (grid.nearest_within, exact) and is an inlier iff
+    |n . (nn - p)| < inlier_threshold; a target normal of norm <= 0.5 falls
+    back to the squared distance (metric.cpp:25-46).  Returns (metric f32[B], count i64[B], rmse f32[B])."""
+    B, S = R.shape[0], sample_xyz.shape[0]
+    tx, ty, tz = transform_points_soa(R, t, sample_xyz)
+    tp = torch.stack([tx, ty, tz], -1)
+    fvalid = sample_valid[None].expand(B, S).reshape(-1)
+    radius = DIST_TO_PLANE_COEFFICIENT * inlier_threshold
+    idx, dist, found = nearest_within(tgt_xyz, tgt_valid, tp.reshape(B * S, 3), fvalid,
+                                      max(radius, 1e-12))
+    nn = idx.reshape(B, S)
+    found = found.reshape(B, S)
+    npt, nnm = tgt_xyz[nn], tgt_normal[nn]
+    d2p = (nnm * (npt - tp)).sum(-1).abs()
+    nn_ok = (nnm * nnm).sum(-1) > 0.5
+    d1 = dist.reshape(B, S)
+    d2p = torch.where(nn_ok, d2p, d1 * d1)
+    inlier = found & (d2p < inlier_threshold)
+    sv = score_values(d2p, torch.full_like(d2p, inlier_threshold), score_id)
+    score = torch.where(inlier, sv, 0.0).sum(1)
+    cnt = inlier.sum(1)
+    sq = torch.where(inlier, d2p * d2p, 0.0).sum(1)
+    rmse = torch.where(cnt > 0, (sq / cnt.clamp_min(1)).sqrt(), BIG)
+    return score / max(float(denom), 1e-30), cnt, rmse
+
+
+@dataclass
+class MetricContext:
+    """What every hypothesis evaluation of one (src, tgt, correspondences)
+    triple shares (metrics.MetricContext; a plain record here)."""
+
+    metric_id: str
+    score_id: str
+    p: torch.Tensor  # f32[M, 3] source point of each correspondence
+    q: torch.Tensor  # f32[M, 3] target point of each correspondence
+    thr: torch.Tensor  # f32[M]
+    cvalid: torch.Tensor  # bool[M]
+    bins3: Optional[torch.Tensor] = None  # uniformity
+    tgt_xyz: Optional[torch.Tensor] = None  # closest plane
+    tgt_valid: Optional[torch.Tensor] = None
+    tgt_normal: Optional[torch.Tensor] = None
+    cp_threshold: float = 0.0
+    sample_xyz: Optional[torch.Tensor] = None
+    sample_valid: Optional[torch.Tensor] = None
+    cp_denom: float = 1.0
+
+
+def evaluate(ctx: MetricContext, R: torch.Tensor, t: torch.Tensor) -> dict:
+    """Score B hypotheses: metric[B], inliers[B], support[B] (the
+    correspondence inliers, for the iteration budget), rmse[B] and the
+    correspondence inlier mask corr_mask[B, M] (metrics.evaluate)."""
+    metric_c, cnt_c, rmse_c, mask_c, _dist = corr_metric(R, t, ctx.p, ctx.q, ctx.thr,
+                                                         ctx.cvalid, ctx.score_id)
+    out = {"support": cnt_c, "corr_mask": mask_c}
+    mid = ctx.metric_id
+
+    if mid in (METRIC_CLOSEST_PLANE, METRIC_COMBINATION):
+        m, cnt, rmse = closest_plane_metric(R, t, ctx.sample_xyz, ctx.sample_valid, ctx.tgt_xyz,
+                                            ctx.tgt_valid, ctx.tgt_normal, ctx.cp_threshold,
+                                            ctx.score_id, ctx.cp_denom)
+    if mid == METRIC_UNIFORMITY:
+        ent = uniformity_entropy(mask_c, ctx.bins3)
+        out.update(metric=torch.where(cnt_c > 0, ent, 0.0), inliers=cnt_c, rmse=rmse_c)
+    elif mid == METRIC_CLOSEST_PLANE:
+        out.update(metric=m, inliers=cnt, rmse=rmse)
+    elif mid == METRIC_COMBINATION:
+        # combination inliers come from the correspondence estimator
+        # (metric.cpp:233-246)
+        out.update(metric=metric_c * m, inliers=cnt_c, rmse=rmse_c)
+    else:
+        # correspondences; the reference falls back to it with a warning
+        out.update(metric=metric_c, inliers=cnt_c, rmse=rmse_c)
+    return out

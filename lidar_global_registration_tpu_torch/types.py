@@ -109,26 +109,59 @@ class Cloud:
     def capacity(self) -> int:
         return int(self.xyz.shape[0])
 
+    def count(self) -> torch.Tensor:
+        return self.valid.sum()
+
     @staticmethod
-    def from_numpy(xyz: np.ndarray, normal: Optional[np.ndarray] = None,
-                   weight: Optional[np.ndarray] = None, capacity: Optional[int] = None,
+    def from_numpy(xyz, normal=None, weight=None, capacity: Optional[int] = None,
                    pad_multiple: int = 128, device=None) -> "Cloud":
-        xyz = np.asarray(xyz, np.float32)
+        """A padded cloud of the rows given (arrays or tensors) on `device`,
+        by default the device of a tensor `xyz` (the CPU for an array)."""
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+        dev = xyz.device
         n = xyz.shape[0]
         cap = capacity if capacity is not None else round_up(n, pad_multiple)
         if cap < n:
             raise ValueError(f"capacity {cap} below the {n} points given")
-        pxyz = np.full((cap, 3), Cloud.PAD_COORD, np.float32)
+        f32 = dict(dtype=torch.float32, device=dev)
+        pxyz = torch.full((cap, 3), Cloud.PAD_COORD, **f32)
         pxyz[:n] = xyz
-        pnormal = np.zeros((cap, 3), np.float32)
+        pnormal = torch.zeros((cap, 3), **f32)
         if normal is not None:
-            pnormal[:n] = np.asarray(normal, np.float32)
-        pweight = np.zeros((cap,), np.float32)
-        pweight[:n] = 1.0 if weight is None else np.asarray(weight, np.float32)
-        pvalid = np.zeros((cap,), bool)
-        pvalid[:n] = True
-        return Cloud(*(torch.from_numpy(x).to(device) for x in (
-            pxyz, pnormal, pweight, np.zeros((cap,), np.float32), pvalid)))
+            pnormal[:n] = torch.as_tensor(normal, **f32)
+        pweight = torch.zeros((cap,), **f32)
+        pweight[:n] = 1.0 if weight is None else torch.as_tensor(weight, **f32)
+        pvalid = torch.arange(cap, device=dev) < n
+        return Cloud(pxyz, pnormal, pweight, torch.zeros((cap,), **f32), pvalid)
+
+    def compact(self, capacity: Optional[int] = None, pad_multiple: int = 128) -> "Cloud":
+        """The valid rows, in order, re-padded to a fresh capacity
+        (round_up(n, pad_multiple) unless given), on the same device."""
+        idx = torch.nonzero(self.valid).squeeze(1)
+        n = idx.shape[0]
+        cap = capacity if capacity is not None else round_up(n, pad_multiple)
+        if cap < n:
+            raise ValueError(f"capacity {cap} below the {n} points given")
+
+        def take(a, fill):
+            out = torch.full((cap,) + a.shape[1:], fill, dtype=a.dtype, device=a.device)
+            out[:n] = a[idx]
+            return out
+
+        return Cloud(take(self.xyz, Cloud.PAD_COORD), take(self.normal, 0.0),
+                     take(self.weight, 0.0), take(self.curvature, 0.0), take(self.valid, False))
+
+    def transformed(self, T: torch.Tensor) -> "Cloud":
+        """Positions (valid rows) and normals under the rigid 4x4 transform T,
+        in elementwise float32 arithmetic (metrics.transform_points_soa)."""
+        from lidar_global_registration_tpu_torch.ops.metrics import transform_points_soa
+
+        T = torch.as_tensor(T, dtype=torch.float32, device=self.xyz.device)
+        R, t = T[None, :3, :3], T[None, :3, 3]
+        xyz = torch.stack(transform_points_soa(R, t, self.xyz), -1)[0]
+        xyz = torch.where(self.valid[:, None], xyz, self.xyz)
+        normal = torch.stack(transform_points_soa(R, torch.zeros_like(t), self.normal), -1)[0]
+        return dataclasses.replace(self, xyz=xyz, normal=normal)
 
 
 @dataclass
@@ -145,6 +178,37 @@ class Correspondences:
     @property
     def capacity(self) -> int:
         return int(self.query.shape[0])
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum()
+
+    @staticmethod
+    def empty(capacity: int, device=None) -> "Correspondences":
+        return Correspondences(
+            query=torch.zeros((capacity,), dtype=torch.int64, device=device),
+            match=torch.zeros((capacity,), dtype=torch.int64, device=device),
+            distance=torch.zeros((capacity,), dtype=torch.float32, device=device),
+            threshold=torch.ones((capacity,), dtype=torch.float32, device=device),
+            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
+    def to_numpy(self) -> dict:
+        """The valid rows as host arrays: query, match, distance, threshold."""
+        m = self.valid
+        return {k: getattr(self, k)[m].cpu().numpy()
+                for k in ("query", "match", "distance", "threshold")}
+
+    def compact(self, capacity: Optional[int] = None,
+                pad_multiple: int = 128) -> "Correspondences":
+        """The valid rows first, re-padded to a fresh capacity, on the same
+        device (padding: rows 0, threshold 1, invalid)."""
+        idx = torch.nonzero(self.valid).squeeze(1)
+        n = idx.shape[0]
+        cap = capacity if capacity is not None else round_up(max(n, 1), pad_multiple)
+        out = Correspondences.empty(cap, self.valid.device)
+        for k in ("query", "match", "distance", "threshold", "valid"):
+            getattr(out, k)[:n] = getattr(self, k)[idx]
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -285,15 +285,34 @@ def test_outside_the_envelope_raises(case, item):
     assert reason and reason in str(e.value) and "ROADMAP" in str(e.value)
 
 
-def test_preloaded_correspondences_and_artifacts_raise():
+def test_preloaded_correspondences_and_artifacts_raise(tmp_path, monkeypatch):
+    """Pre-loaded correspondences still raise (the host path); with
+    save_artifacts the correspondence cache and the transformations.csv rows
+    (the GT's, then the estimate's) are written under the JAX package's
+    names."""
+    from lidar_global_registration_tpu.utils import naming as jnaming
+
     src, tgt = _tiny_clouds()
     z = torch.zeros(4)
     corr = ttypes.Correspondences(z.long(), z.long(), z, z, z.bool())
     with pytest.raises(NotImplementedError, match="Host-path ops"):
         tpipe.align_point_clouds(src, tgt, _params(ttypes), save_artifacts=False,
                                  correspondences=corr, device="cpu")
-    with pytest.raises(NotImplementedError, match="Host pipeline and CLI"):
-        tpipe.align_point_clouds(src, tgt, _params(ttypes), device="cpu")
+    monkeypatch.chdir(tmp_path)
+    gt = np.eye(4, dtype=np.float32)
+    kw = dict(testname="a_b", ground_truth=gt)
+    res = tpipe.align_point_clouds(src, tgt, _params(ttypes, **kw), device="cpu")
+    jp = _params(jtypes, **kw)
+    cache = Path(jnaming.construct_path(jp, "correspondences", "csv", True, False, False))
+    lines = cache.read_text().splitlines()
+    assert lines[0] == "query_idx,match_idx,distance,threshold,x_s,y_s,z_s,x_t,y_t,z_t"
+    assert len(lines) == 1 + int(res.correspondences.valid.sum())
+    rows = (tmp_path / "data/debug/transformations.csv").read_text().splitlines()
+    assert [r.split(",")[0] for r in rows] == [
+        "reading", jnaming.construct_name(jp, "transformation_gt"),
+        jnaming.construct_name(jp, "transformation")]
+    np.testing.assert_allclose(np.array(rows[2].split(",")[1:], float),
+                               res.transformation.reshape(-1), rtol=1e-5, atol=1e-5)
 
 
 def test_cloud_from_numpy():
