@@ -74,10 +74,19 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       default configuration and with FPFH at the fixed feature radius that the
       printed density gives, `metric` on both caches and a `measure` test
       (n_times 3); at 10,485,760 points `alignment` with FPFH and the AUTO
-      radius.  Each result row must be converged with r_err < 0.05 rad and
-      t_err and overlap_rmse < distance_thr, `metric`'s cached inliers within
-      1 % of the alignment's, `measure`'s success rate 1; each command's
-      step times, peak device memory and K1-K7 launches are printed.
+      radius.  Then the host path on the 1M scans (align_point_clouds outside
+      the staged envelope): one `alignment` process over a `tests:` list of
+      the reference's default configuration with the combination metric (H1:
+      SHOT, the AUTO radius, the host pyramid) and FPFH at the fixed radius
+      with lr matching and the weighted closest-plane metric, solved by
+      RANSAC and by GROR (H2); it must launch K2-K4, K5's full pass and K7
+      and no K1 or K6 form, and one launch each of K2-K4, K5 and K7 (D = 33
+      and 352) is captured at its shape in this process and held against
+      its plain version.  Each result row must be converged with r_err <
+      0.05 rad and t_err and overlap_rmse < distance_thr, `metric`'s cached
+      inliers within 1 % of the alignment's, `measure`'s success rate 1; each
+      command's step times, peak device memory and K1-K7 launches are
+      printed.
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -1669,7 +1678,9 @@ WRAPPER_OF = {
     **dict.fromkeys(("combine_at", "combine_at_classic", "combine_at_pyr_fine",
                      "combine_at_pyr_coarse"), "combine_at_cuda"),
     **dict.fromkeys(("nn_l2", "nn_l2_262k", "nn_l2_d352_64k", "nn_l2_iss", "nn_l2_d352",
-                     "nn_l2_pyr"), "nn_l2_cuda"),
+                     "nn_l2_pyr", "nn_l2_host_d33", "nn_l2_host_d352"), "nn_l2_cuda"),
+    **{k + "_host": k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms")},
+    "spfh_host": "spfh_cuda",
 }
 
 CLI_DIR = ROOT / "chiprun_out" / "cli"
@@ -1767,13 +1778,146 @@ def cli_results(d: Path, n_rows: int) -> list[dict]:
     rows = [dict(zip(header, ln.split(","))) for ln in lines[1:]][-n_rows:]
     for r in rows:
         thr = float(r["distance_thr"])
-        log(f"#   result {r['descriptor']} fr={r['feature_radius'] or 'auto'}: converged="
+        log(f"#   result {r['descriptor']} fr={r['feature_radius'] or 'auto'} {r['metric_type']} "
+            f"{r['matching_type']} {r['alignment_type']}: converged="
             f"{r['converged']} r_err={r['r_err']} t_err={r['t_err']} overlap_rmse="
             f"{r['overlap_rmse']} thr={thr:g} inliers={r['inliers']}/{r['correspondences']} "
-            f"overlap={r['overlap']} time_te={r['time_te']}")
+            f"overlap={r['overlap']} time_cs={r['time_cs']} time_te={r['time_te']}")
         assert r["converged"] == "1" and float(r["r_err"]) < R_ERR_MAX, r
         assert float(r["t_err"]) < thr and float(r["overlap_rmse"]) < thr, r
     return rows
+
+
+# The host path (align_point_clouds outside the staged envelope: host ISS,
+# the host pyramid, align_ransac / align_gror): H1 is the reference's default
+# configuration with the AlignmentParameters default metric (combination),
+# H2 FPFH at a fixed radius with lr matching and the weighted closest-plane
+# metric, solved by RANSAC and by GROR.
+HOST_H1 = "lrf: gravity\nmetric: combination\n"
+HOST_H2 = ("descriptor: fpfh\nkeypoint: iss\nmatching: lr\nmetric: weighted_closest_plane\n"
+           "weight: exp_curvature\n")
+# the forms the host path launches (K2-K4, K5's full pass, K7) and those it
+# never runs (K1: the loader's and the levels' normals are kNN; K5's subset
+# form; K6: the keypoints are not rows of a level surface)
+HOST_ON = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda", "spfh_cuda", "nn_l2_cuda")
+HOST_OFF = ("surface_cuda", "surface_at_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda")
+
+
+def host_run(d: Path, fr: float) -> dict:
+    """H1 and H2 (RANSAC and GROR) as one `alignment` process over a
+    `tests:` list on the scans in d; every result row held to the success
+    rules.  Returns the run (seconds, launches, densities)."""
+    h2 = HOST_H2 + f"feature_radius: {fr!r}\n"
+    (d / "host.yaml").write_text("tests:\n" + "".join(
+        "    - test:\n" + "".join(f"        {ln}\n" for ln in (CLI_SCENE + body).strip().splitlines())
+        for body in (HOST_H1, h2 + "alignment: [ransac, gror]\n")))
+    run = run_cli(d, "alignment", "host.yaml", "alignment_host_1m")
+    rows = cli_results(d, 3)
+    assert [(r["descriptor"], r["alignment_type"]) for r in rows] == [
+        ("shot", "ransac"), ("fpfh", "ransac"), ("fpfh", "gror")], rows
+    got = run["launches"]
+    assert all(got.get(w, 0) > 0 for w in HOST_ON), f"host path: a kernel never ran: {got}"
+    assert all(got[w] == 0 for w in HOST_OFF), f"host path: a form off its path ran: {got}"
+    return run
+
+
+def host_captures(d: Path, fr: float, dev) -> tuple[dict, float]:
+    """One launch each of K2 (with its plan, for K3 and K4), K5's full pass
+    and K7 at D = 33 and 352, captured at the shapes the host path gives
+    them: the loader and the correspondence search of H1 (SHOT) and H2
+    (FPFH at radius fr) run in this process on the scans in d, with each
+    wrapper wrapped by a recorder.  Returns ({wrapper or nn_l2_d<D>: its
+    first call's arguments}, the source's ISS radius)."""
+    import os
+
+    from lidar_global_registration_tpu_torch.models import pipeline as tp
+    from lidar_global_registration_tpu_torch.models.pyramid import (
+        feature_based_correspondence_search,
+    )
+    from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
+    from lidar_global_registration_tpu_torch.utils.config import Config
+
+    for name, body in (("host_h1", HOST_H1), ("host_h2", HOST_H2 + f"feature_radius: {fr!r}\n")):
+        cli_config(d, name, body)
+    got, originals = {}, []
+
+    def record(mod, name, key=None):
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        def hook(*args):
+            got.setdefault(key(*args) if key else name, args)
+            return fn(*args)
+        # the wrapper's body counts into `<module>.<name>.launches`, now the
+        # hook's: these calls stay out of the wrapper's own count
+        hook.launches = 0
+        setattr(mod, name, hook)
+
+    for name in ("iss_count_cuda", "spfh_cuda"):
+        record(cellgrid, name)
+    record(nn_l2, "nn_l2_cuda", key=lambda q, *_a: f"nn_l2_d{q.shape[1]}")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        radii = []
+        for name in ("host_h1", "host_h2"):
+            config = Config.load(f"{name}.yaml")
+            (_tn, src, tgt, _fs, _ft, ds, dt, na, vps, vpt) = tp.load_point_clouds(config, dev)
+            (params,) = tp.parameters_from_config(config, ds, dt, na, vps, vpt)
+            radii.append(float(params.iss_radius_src))  # K2's first launch: H1's source
+            c = feature_based_correspondence_search(src, tgt, params)
+            log(f"#   {name} search in this process: {int(c.count())} correspondences")
+    finally:
+        os.chdir(cwd)
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    assert {"iss_count_cuda", "spfh_cuda", "nn_l2_d33", "nn_l2_d352"} <= got.keys(), got.keys()
+    return got, radii[0]
+
+
+def host_records(got: dict, r_iss: float) -> list[dict]:
+    """The host path's captured launches against their plain versions: K2
+    and K4 exact, K3 within saliency_err's bounds (on the same plan), K5's
+    full pass with equal pair counts and bin-edge moves only, K7 exact."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+
+    pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
+    plan, _r2 = got["iss_count_cuda"]
+    records = iss_records(plan, r_iss, "_host")
+    plan_f, r2f, cen = got["spfh_cuda"]
+    sp_k, c_k = cg.spfh_cuda(plan_f, r2f, cen)
+    (sp_p, c_p), k5_plain_ms = timed_once(lambda: cg.spfh_plain(plan_f, r2f, cen))
+    assert torch.equal(c_k, c_p), "K5 (host level surface) pair counts differ"
+    f5 = frac_off(sp_k, sp_p)
+    assert f5 < 1e-3, f"K5 (host level surface): {f5:.2e} off by > 0.5"
+    records.append(dict(
+        name="spfh_host", route="cuda", source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
+        replaces=pallas + "1554", max_abs_err=float((sp_k - sp_p).abs().max()),
+        queries=int(plan_f.n_valid), ms=cuda_ms(lambda: cg.spfh_cuda(plan_f, r2f, cen), 5),
+        plain_ms=k5_plain_ms, **stencil_bound("spfh", plan_f, c_p.sum(), tbytes(
+            plan_f.pts, plan_f.nrm, plan_f.cell_of, plan_f.cols, sp_k, c_k)), library_ms=None))
+    log(f"# K5 spfh_host ok: {plan_f.n_valid} level-surface rows, frac_off={f5:.2e}, "
+        f"{records[-1]['ms']:.4f} ms")
+    for D in (33, 352):
+        q, t, tv = got[f"nn_l2_d{D}"]
+        d2k, ik = nn_l2.nn_l2_cuda(q, t, tv)
+        d2p, ip = nn_l2.nn_l2_plain(q, t, tv)
+        assert torch.equal(ik, ip) and torch.equal(d2k, d2p), f"K7 (host, D = {D}) differs"
+        records.append(dict(
+            name=f"nn_l2_host_d{D}", route="cuda",
+            source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
+            replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+            max_abs_err=float((d2k - d2p).abs().max()),
+            shape=[int(q.shape[0]), int(t.shape[0]), D], valid_train=int(tv.sum()),
+            ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(q, t, tv), 10),
+            plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(q, t, tv), 2),
+            **nn_bound(q, t, tv, d2k, ik), library_ms=cuda_ms(lambda: library_nn(q, t, tv), 2)))
+        log(f"# K7 nn_l2_host_d{D} ok: {q.shape[0]} x {t.shape[0]} rows, exact, "
+            f"{records[-1]['ms']:.4f} ms")
+    return records
 
 
 def cli_phase(dev):
@@ -1784,15 +1928,18 @@ def cli_phase(dev):
     (SHOT, the AUTO radius: the staged pyramid) and with FPFH at the fixed
     feature radius that the printed density gives (the feature-scale
     route), `metric` on both caches, and a `measure` test of the FPFH
-    setting, n_times 3; at 10,485,760 points `alignment` with FPFH and the
-    AUTO radius.  Every result row is held to the success rules, `metric`'s
-    cached inliers to the alignment's, `measure` to a success rate of 1.
-    The scans are deleted afterwards.  Returns each run's kernel launches."""
+    setting, n_times 3, then the host path (host_run: H1 and H2 in one
+    process) and its kernels at their shapes (host_captures, host_records);
+    at 10,485,760 points `alignment` with FPFH and the AUTO radius.  Every
+    result row is held to the success rules, `metric`'s cached inliers to
+    the alignment's, `measure` to a success rate of 1.  The scans are
+    deleted afterwards.  Returns (each run's kernel launches, the host
+    path's kernel records)."""
     import torch
 
     from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
 
-    launches = {}
+    launches, host = {}, []
     fpfh = "descriptor: fpfh\nkeypoint: iss\nmatching: cluster\nmetric: uniformity\n"
     need = {"shot": [w for k, w in CLI_WRAPPERS if k not in ("spfh", "combine")],
             "fpfh": [w for _k, w in CLI_WRAPPERS]}
@@ -1824,6 +1971,10 @@ def cli_phase(dev):
                                              cli_config(d, "measure", body + "n_times: 3\n",
                                                         tests="measure"), "measure_1m")))
                 cli_measure(d)
+                launches["cli_host_1m"] = host_run(d, fr)["launches"]
+                got, r_iss = host_captures(d, fr, dev)
+                host = host_records(got, r_iss)
+                del got
             else:
                 runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh_auto", fpfh),
                                              "alignment_fpfh_10m")))
@@ -1838,7 +1989,7 @@ def cli_phase(dev):
             assert all(got[w] == 0 for w in CLI_OFF), f"{label}: a form off the CLI path ran: {got}"
             launches[label] = got
     log(f"# launches in the CLI runs: {launches}")
-    return launches
+    return launches, host
 
 
 def cli_metrics(d: Path, rows: list[dict]) -> None:
@@ -2128,8 +2279,11 @@ def main() -> int:
 
     # the command line, as a user runs it, on the graded 1M and 10M pairs:
     # each record reads its own form's counter (0 for the forms off the path)
-    cli_launches = cli_phase(dev)
+    cli_launches, host = cli_phase(dev)
     elapsed("CLI phase")
+    for rec in host:
+        rec["launches"] = cli_launches["cli_host_1m"][WRAPPER_OF[rec["name"]]]
+    records += host
     for rec in records:
         for route, got in cli_launches.items():
             rec[f"launches_{route}"] = got[WRAPPER_OF[rec["name"]]]

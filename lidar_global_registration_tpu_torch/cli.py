@@ -8,8 +8,9 @@ Usage:  python -m lidar_global_registration_tpu_torch <command> config.yaml
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the kernels'
 plain versions on the CPU (the tests do).  The `debug` command and the
-`compare` and `keypoint` test types need the host ISS detector, the weight
-functions and the debug PLY writers, which are not ported yet: they raise.
+`compare` and `keypoint` test types need the debug PLY writers
+(utils/debug_viz.py) and the sub-voxel ISS keypoints, which are not ported
+yet: they raise.
 """
 from __future__ import annotations
 
@@ -38,9 +39,9 @@ from lidar_global_registration_tpu_torch.utils.naming import (
 ALIGNMENT = "alignment"
 METRIC_ANALYSIS = "metric"
 DEBUG = "debug"
-_NOT_PORTED = ("needs the host ISS detector (ops/iss.detect_keypoints, subvoxel_iss_keypoints), "
-               "ops/weights.py and utils/debug_viz.py, which are not ported yet: see ROADMAP.md, "
-               "Queue 1, item 3 ('Host-path ops')")
+_NOT_PORTED = ("needs utils/debug_viz.py and the sub-voxel ISS keypoints "
+               "(ops/iss.subvoxel_iss_keypoints, ops/quadric.py), which are not ported yet: see "
+               "ROADMAP.md, Queue 1, item 2 (the debug side of the CLI)")
 
 
 def _load_common(config: Config, device):

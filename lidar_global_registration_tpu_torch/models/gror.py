@@ -14,7 +14,9 @@ K_optimal = 800 and resolution = distance_thr).  Stages:
      Umeyama.
 
 Plain functions on tensors, on the device of `p`; function for function the
-JAX module, names kept.  The solver draws nothing, so on one correspondence
+JAX module, names kept.  `align_gror` is the host path's solver around
+`gror_solve`; `gror_preparation` (GROR's own preprocessing, no caller on
+the command line's path) is not ported (ROADMAP.md, Queue 1, item 3).  The solver draws nothing, so on one correspondence
 set both packages give the same result.  The orchestration (the stable
 order of the nodes and of the edges, the early exit once the best TCFS
 count reaches the largest RCFS bound left) runs on the host with one read
@@ -24,11 +26,18 @@ elementwise sums: full float32 whatever the matmul precision settings are.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
 from lidar_global_registration_tpu_torch.ops.transform import to_matrix4, umeyama
+from lidar_global_registration_tpu_torch.types import (
+    AlignmentParameters,
+    AlignmentResult,
+    Cloud,
+    Correspondences,
+)
 
 K_OPTIMAL = 800  # alignment.cpp:31
 TWO_PI = 2.0 * math.pi
@@ -363,3 +372,23 @@ def gror_solve(p_all, q_all, valid, resolution: float, k_optimal: int = K_OPTIMA
         "n_correspondences": n_corr,
         "iterations": rounds,
     }
+
+
+def align_gror(src: Cloud, tgt: Cloud, corrs: Correspondences, params: AlignmentParameters,
+               k_optimal: int = K_OPTIMAL, edge_batch: int = 256) -> AlignmentResult:
+    """GROR alignment of a correspondence set (gror.align_gror,
+    ia_gror.hpp:199-258): gror_solve over the compacted correspondences'
+    endpoints at resolution = distance_thr, on the clouds' device."""
+    t0 = time.time()
+    corrs = corrs.compact()
+    if int(corrs.count()) < 2:
+        return AlignmentResult(src=src, tgt=tgt, transformation=np.eye(4, dtype=np.float32),
+                               correspondences=corrs, iterations=1, converged=False,
+                               time_te=time.time() - t0)
+    out = gror_solve(src.xyz[corrs.query], tgt.xyz[corrs.match], corrs.valid,
+                     float(params.distance_thr), k_optimal=k_optimal, edge_batch=edge_batch)
+    return AlignmentResult(src=src, tgt=tgt,
+                           transformation=out["transformation"].cpu().numpy().astype(np.float32),
+                           correspondences=corrs, iterations=max(int(out["iterations"]), 1),
+                           converged=bool(out["converged"]), time_te=time.time() - t0,
+                           metric=float(out["metric"]))

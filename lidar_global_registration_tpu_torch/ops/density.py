@@ -52,48 +52,76 @@ def _knn_topk(d2: torch.Tensor, k: int):
     return vals, ids
 
 
-def _knn_brute(pts: torch.Tensor, rows: torch.Tensor, k: int):
-    """Exact non-self kNN of pts[rows] against the whole cloud."""
+def _knn_brute(pts: torch.Tensor, rows: torch.Tensor, k: int,
+               queries: torch.Tensor | None = None):
+    """Exact kNN of pts[rows] (at nonzero distance) or of the positions
+    queries[rows] (at any distance) against the whole cloud."""
     n = pts.shape[0]
+    q = pts[rows] if queries is None else queries[rows]
     dist = torch.empty((rows.shape[0], k), dtype=torch.float32, device=pts.device)
     idx = torch.empty((rows.shape[0], k), dtype=torch.int64, device=pts.device)
     cx, cy, cz = pts[:, 0][None, :], pts[:, 1][None, :], pts[:, 2][None, :]
     chunk = max(1, _BRUTE_CHUNK_PAIRS // max(n, 1))
     for s in range(0, rows.shape[0], chunk):
-        q = pts[rows[s:s + chunk]]
-        dx, dy, dz = cx - q[:, 0:1], cy - q[:, 1:2], cz - q[:, 2:3]
+        qs = q[s:s + chunk]
+        dx, dy, dz = cx - qs[:, 0:1], cy - qs[:, 1:2], cz - qs[:, 2:3]
         d2 = dx * dx + dy * dy + dz * dz
-        vals, ids = _knn_topk(torch.where(d2 > 0.0, d2, torch.inf), k)
+        vals, ids = _knn_topk(torch.where(d2 > 0.0, d2, torch.inf) if queries is None else d2, k)
         dist[s:s + chunk] = vals.sqrt()
         idx[s:s + chunk] = ids
     return dist, idx
 
 
-def knn_nonself(pts: torch.Tensor, k: int, max_doublings: int = 8,
-                min_covered: float = 0.999):
-    """Exact k nearest neighbours at nonzero distance among `pts` [n, 3]
-    (density.knn_distances on the cell-list plan, see the module
-    docstring).  Self-exclusion is by zero distance (the framework-wide
-    include_self=False convention, ops/grid.py).  Returns (dist f32[n, k]
-    ascending, idx i64[n, k] input rows); rows with fewer than k such
-    neighbours carry inf."""
-    dev = pts.device
-    n = pts.shape[0]
-    dist = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
-    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
-    if n == 0:
-        return dist, idx
-    valid = torch.ones((n,), dtype=torch.bool, device=dev)
-    todo = torch.arange(n, device=dev)
-    cell = _auto_cell(pts, k + 1)
-    for _ in range(max_doublings):
-        plan = cellgrid.plan_grid(pts, valid, cell)
+def _stencil_blocks(plan: cellgrid.GridPlan, todo: torch.Tensor, queries):
+    """(a, b, ids, ok, d2) over query chunks of `todo`: every candidate of
+    each query's 27-cell stencil (sorted slots ids, ok) with its squared
+    distance.  The queries are the plan's own rows todo (queries None,
+    zero distances dropped: self-exclusion) or the positions queries[todo],
+    in order of their cells."""
+    if queries is None:
         slots = cellgrid.slot_of(plan)[todo]
-        done = torch.zeros((todo.shape[0],), dtype=torch.bool, device=dev)
         for (a, b), sl in cellgrid._slot_chunks(plan, slots):
             ids, ok = cellgrid.candidates_at(plan, sl)
             d2 = cellgrid._pair_d2(plan, sl, ids)[3]
-            vals, j = _knn_topk(torch.where(ok & (d2 > 0.0), d2, torch.inf), k)
+            yield a, b, ids, ok & (d2 > 0.0), d2
+        return
+    cols = cellgrid.position_cols(plan, queries[todo])
+    lens = (cols[..., 1] - cols[..., 0]).sum(1)
+    for a, b in cellgrid._chunk_ranges(lens):
+        ids, ok = cellgrid.candidates_from_cols(cols[a:b])
+        d = plan.pts[ids, :3] - queries[todo[a:b], None, :]
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        yield a, b, ids, ok, dx * dx + dy * dy + dz * dz
+
+
+def knn_nonself(pts: torch.Tensor, k: int, max_doublings: int = 8,
+                min_covered: float = 0.999, queries: torch.Tensor | None = None):
+    """Exact k nearest neighbours at nonzero distance among `pts` [n, 3]
+    (density.knn_distances on the cell-list plan, see the module
+    docstring).  Self-exclusion is by zero distance (the framework-wide
+    include_self=False convention, ops/grid.py).  With `queries` (positions
+    f32[m, 3], e.g. keypoints against a coarser surface) the k nearest
+    points of pts to each position at any distance, by the same passes
+    (grid.knn of one cloud against another).  Returns (dist f32[m, k]
+    ascending, idx i64[m, k] rows of pts); rows with fewer than k such
+    neighbours carry inf."""
+    dev = pts.device
+    n = pts.shape[0]
+    m = n if queries is None else queries.shape[0]
+    dist = torch.full((m, k), torch.inf, dtype=torch.float32, device=dev)
+    idx = torch.zeros((m, k), dtype=torch.int64, device=dev)
+    if n == 0 or m == 0:
+        return dist, idx
+    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    todo = torch.arange(m, device=dev)
+    cell = _auto_cell(pts, k + 1)
+    for _ in range(max_doublings):
+        plan = cellgrid.plan_grid(pts, valid, cell)
+        if queries is not None:  # cell order, so that a chunk's candidate rows are alike
+            todo = todo[cellgrid.position_cols(plan, queries[todo])[:, 4, 0].argsort(stable=True)]
+        done = torch.zeros((todo.shape[0],), dtype=torch.bool, device=dev)
+        for a, b, ids, ok, d2 in _stencil_blocks(plan, todo, queries):
+            vals, j = _knn_topk(torch.where(ok, d2, torch.inf), k)
             dk = vals.sqrt()
             # exact when the k-th neighbour lies within one cell
             cov = dk[:, k - 1] <= cell
@@ -102,11 +130,11 @@ def knn_nonself(pts: torch.Tensor, k: int, max_doublings: int = 8,
             idx[rows] = plan.order[ids.gather(1, j)][cov]
             done[a:b] = cov
         todo = todo[~done]
-        if todo.shape[0] <= (1.0 - min_covered) * n:
+        if todo.shape[0] <= (1.0 - min_covered) * m:
             break
         cell *= 2.0
     if todo.shape[0]:
-        dist[todo], idx[todo] = _knn_brute(pts, todo, k)
+        dist[todo], idx[todo] = _knn_brute(pts, todo, k, queries)
     return dist, idx
 
 

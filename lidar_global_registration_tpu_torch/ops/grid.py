@@ -12,7 +12,8 @@ candidate, and the k nearest within r are kept by an exact top-k.  Exact
 and uncapped, like the reference's radiusSearch and the JAX package's CPU
 path.
 
-knn (grid.knn over the cloud itself, as the normal estimation asks it) and
+knn (grid.knn over the cloud itself, as the normal estimation asks it, or
+of other positions on the cloud, as the pyramid's keypoint normals ask it) and
 nearest_within (grid.radius_neighbors with k = 1, as the analysis and the
 closest-plane metric ask it) are exact too, where the JAX package's capped
 cells (cell_cap = 64) drop points of overfull cells in cloud order.
@@ -66,24 +67,37 @@ def radius_neighbors(plan: cellgrid.GridPlan, queries: torch.Tensor, qvalid: tor
     return idx, dist, mask
 
 
-def knn(xyz: torch.Tensor, valid: torch.Tensor, k: int):
+def knn(xyz: torch.Tensor, valid: torch.Tensor, k: int, queries: torch.Tensor | None = None,
+        qvalid: torch.Tensor | None = None):
     """The k nearest valid points of every valid row of the cloud, itself
     first (grid.knn with include_self over the cloud's own grid, whose
     27-cell envelope the JAX package grows until it holds the k-th
-    neighbour): exact, from ops/density.knn_nonself.  Returns (idx i64[N,
-    k] input rows, dist f32[N, k] ascending, mask bool[N, k]); masked
-    entries (invalid rows, clouds of fewer than k points) hold 0 and BIG."""
-    N = xyz.shape[0]
+    neighbour), or with `queries` (f32[M, 3], valid where qvalid) the k
+    nearest valid points of the cloud to each query position at any
+    distance (grid.knn of the queries on the cloud's grid): exact, from
+    ops/density.knn_nonself.  Returns (idx i64[N or M, k] input rows, dist
+    f32 ascending, mask bool); masked entries (invalid rows, clouds of
+    fewer than k points) hold 0 and BIG."""
     dev = xyz.device
     rows = torch.nonzero(valid).squeeze(1)
+    if queries is None:
+        N = xyz.shape[0]
+        qrows = rows
+        d, j = knn_nonself(xyz[rows], k - 1)
+        d = torch.cat([torch.zeros_like(d[:, :1]), d], 1)
+        j = torch.cat([torch.arange(rows.shape[0], device=dev)[:, None], j], 1)
+    else:
+        N = queries.shape[0]
+        qrows = (torch.nonzero(qvalid).squeeze(1) if qvalid is not None
+                 else torch.arange(N, device=dev))
+        d, j = knn_nonself(xyz[rows], k, queries=queries[qrows])
+    ok = torch.isfinite(d)
     idx = torch.zeros((N, k), dtype=torch.int64, device=dev)
     dist = torch.full((N, k), BIG, dtype=torch.float32, device=dev)
-    d, j = knn_nonself(xyz[rows], k - 1)
-    ok = torch.isfinite(d)
-    idx[rows] = torch.cat([rows[:, None], torch.where(ok, rows[j], 0)], 1)
-    dist[rows] = torch.cat([torch.zeros_like(d[:, :1]), torch.where(ok, d, BIG)], 1)
     mask = torch.zeros((N, k), dtype=torch.bool, device=dev)
-    mask[rows] = torch.cat([torch.ones_like(ok[:, :1]), ok], 1)
+    idx[qrows] = torch.where(ok, rows[j], 0)
+    dist[qrows] = torch.where(ok, d, BIG)
+    mask[qrows] = ok
     return idx, dist, mask
 
 

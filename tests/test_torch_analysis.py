@@ -303,10 +303,26 @@ def test_evaluate_one_matches_jax(pair, metric, score):
 
 
 def test_weighted_metric_raises(pair):
+    """The weighted closest-plane metric builds its context (it raises no
+    NotImplementedError) and scores as JAX's: each sample weighed by the
+    source's exp_curvature weights, over their sum.  The weights' kNN (30,
+    cap 64) holds every point of this sphere; counts and masks exact,
+    metric within 1e-5."""
+    ja, jb, jcorr = pair["jax"]
     ta, tb, tcorr = pair["port"]
-    p = ttypes.AlignmentParameters(metric_id="weighted_closest_plane")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        transac.build_metric_context(ta, tb, tcorr, p, False)
+    kw = dict(metric_id="weighted_closest_plane", weight_id="exp_curvature")
+    jctx = jransac.build_metric_context(ja, jb, jcorr, jtypes.AlignmentParameters(**kw), False)
+    tctx = transac.build_metric_context(ta, tb, tcorr, ttypes.AlignmentParameters(**kw), False)
+    n = int(ta.count())
+    np.testing.assert_allclose(tctx.cp_weights.numpy()[:n], np.asarray(jctx.cp_weights)[:n],
+                               rtol=1e-5, atol=1e-7)
+    assert tctx.cp_denom == pytest.approx(float(jctx.cp_denom), rel=1e-5)
+    for name, T in TRANSFORMS.items():
+        jm, ji, jr, _jmask, js = jransac._evaluate_one(jctx, jnp.asarray(T))
+        tm, ti, tr, _tmask, ts = transac._evaluate_one(tctx, T)
+        assert int(ti) == int(ji) and int(ts) == int(js), name
+        assert float(tm) == pytest.approx(float(jm), rel=1e-5, abs=1e-6), name
+        assert float(tr) == pytest.approx(float(jr), rel=1e-5), name
 
 
 @pytest.fixture(scope="module")

@@ -219,9 +219,9 @@ def test_measure_through_the_port(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["debug", "compare", "keypoint"])
 def test_unported_commands_raise(tmp_path, monkeypatch, entry):
-    """`debug` and the `compare` / `keypoint` test types need the host ISS
-    detector, the weights and the debug PLYs: NotImplementedError naming
-    the ROADMAP item, before any scan is read."""
+    """`debug` and the `compare` / `keypoint` test types need the sub-voxel
+    ISS keypoints and the debug PLYs: NotImplementedError naming the
+    ROADMAP item, before any scan is read."""
     monkeypatch.chdir(tmp_path)
     if entry == "debug":
         (tmp_path / "c.yaml").write_text(CONFIG)
@@ -230,7 +230,7 @@ def test_unported_commands_raise(tmp_path, monkeypatch, entry):
         body = "".join(f"        {ln}\n" for ln in CONFIG.strip().splitlines())
         (tmp_path / "c.yaml").write_text(f"tests:\n    - {entry}:\n" + body)
         argv = ["alignment", "c.yaml"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1, item 2"):
         tcli.main(argv, device="cpu")
 
 

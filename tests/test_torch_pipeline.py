@@ -270,34 +270,68 @@ def _tiny_clouds():
 
 
 @pytest.mark.parametrize("case,item", [
-    (dict(matching_id="one_sided"), "Host-path ops"),
+    (dict(descriptor_id="rops"), "Host-path ops"),
     (dict(descriptor_id="usc"), "Host-path ops"),
-    (dict(alignment_id="teaser"), "Host-path ops"),
+    (dict(descriptor_id="shot", lrf_id="gt"), "Host-path ops"),
+    (dict(guess=np.eye(4, dtype=np.float32)), "Host-path ops"),
+    (dict(save_features=True), "item 2"),
 ])
-def test_outside_the_envelope_raises(case, item):
-    """The JAX package prints the reason and takes its host pyramid; the
-    port raises with the reason and the item that ports that path."""
+def test_outside_the_envelope_raises(case, item, capsys):
+    """Outside the staged envelope both packages print the reason and take
+    the host pyramid; there the settings the port has not ported yet raise,
+    each naming its ROADMAP item, before any keypoint is searched."""
     src, tgt = _tiny_clouds()
     _cfg, reason = tpipe.staged_envelope(_params(ttypes, **case))
     with pytest.raises(NotImplementedError, match=item) as e:
         tpipe.align_point_clouds(src, tgt, _params(ttypes, **case), save_artifacts=False,
                                  device="cpu")
-    assert reason and reason in str(e.value) and "ROADMAP" in str(e.value)
+    assert reason and "ROADMAP" in str(e.value) and "Queue 1" in str(e.value)
+    assert (f"# staged TPU path unavailable ({reason}); host pyramid path used"
+            in capsys.readouterr().out)
+
+
+def test_teaser_raises_after_the_search(capsys):
+    """alignment teaser: the search runs, then the JAX package's refusal."""
+    src, tgt = _tiny_clouds()
+    with pytest.raises(NotImplementedError, match="support TEASER"):
+        tpipe.align_point_clouds(src, tgt, _params(ttypes, alignment_id="teaser"),
+                                 save_artifacts=False, device="cpu")
+    assert "host pyramid path used" in capsys.readouterr().out
 
 
 def test_preloaded_correspondences_and_artifacts_raise(tmp_path, monkeypatch):
-    """Pre-loaded correspondences still raise (the host path); with
-    save_artifacts the correspondence cache and the transformations.csv rows
-    (the GT's, then the estimate's) are written under the JAX package's
-    names."""
+    """Pre-loaded correspondences go to the solver with no search, as in
+    the JAX package: on the same set (60 pairs of one cloud and its copy,
+    so every pair is an inlier) both packages converge to the identity in
+    one round; with save_artifacts the correspondence cache and the
+    transformations.csv rows (the GT's, then the estimate's) are written
+    under the JAX package's names."""
     from lidar_global_registration_tpu.utils import naming as jnaming
 
     src, tgt = _tiny_clouds()
-    z = torch.zeros(4)
-    corr = ttypes.Correspondences(z.long(), z.long(), z, z, z.bool())
-    with pytest.raises(NotImplementedError, match="Host-path ops"):
-        tpipe.align_point_clouds(src, tgt, _params(ttypes), save_artifacts=False,
-                                 correspondences=corr, device="cpu")
+    n, cap = 60, 128
+    q = np.zeros(cap, np.int64)
+    q[:n] = np.arange(0, 3 * n, 3)
+    thr = np.full(cap, 0.05, np.float32)
+    valid = np.arange(cap) < n
+    corr = ttypes.Correspondences(torch.from_numpy(q), torch.from_numpy(q),
+                                  torch.zeros(cap), torch.from_numpy(thr),
+                                  torch.from_numpy(valid))
+    jcorr = jtypes.Correspondences(*(jnp.asarray(v) for v in (q.astype(np.int32),
+                                                              q.astype(np.int32),
+                                                              np.zeros(cap, np.float32), thr,
+                                                              valid)))
+    x = src.xyz.numpy()[:200]
+    jres = jpipe.align_point_clouds(jtypes.Cloud.from_numpy(x), jtypes.Cloud.from_numpy(x),
+                                    _params(jtypes), save_artifacts=False, correspondences=jcorr)
+    tres = tpipe.align_point_clouds(src, tgt, _params(ttypes), save_artifacts=False,
+                                    correspondences=corr, device="cpu")
+    assert tres.converged and jres.converged and tres.time_cs == jres.time_cs == 0.0
+    assert tres.iterations == jres.iterations
+    np.testing.assert_allclose(tres.transformation, np.asarray(jres.transformation), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(tres.transformation, np.eye(4), rtol=0, atol=1e-5)
+    assert int(tres.correspondences.count()) == n
     monkeypatch.chdir(tmp_path)
     gt = np.eye(4, dtype=np.float32)
     kw = dict(testname="a_b", ground_truth=gt)
