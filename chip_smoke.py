@@ -17,11 +17,15 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       a corner, K3's gates shut and open for every query, K4 on ties, on
       saliencies whose only blocker comes last, on min_neighbors above
       every count);
-      K7 at the edges of its tiling (D in {1, 33, 352, 512}, nq in {1,
-      127, 129, 22203}, duplicate rows across every split of the train
-      range, no valid row); the bench's 65,536-point pair, one warm-up and
-      three timed repeats; a 4,096-point pair through the kernels and the
-      plain versions; K5, K6 and K7 checked at 262,144 points, then one
+      K7 at the edges of its tiling (D in {1, 33, 135, 352, 512, 1960},
+      nq in {1, 127, 129, 22203}, its bf16 form at D = 33 and 352,
+      duplicate rows across every split of the train range, no valid row);
+      the bench's 65,536-point pair, one warm-up and three timed repeats; a
+      4,096-point pair through the kernels and the plain versions; the JAX
+      package's one-graph entry points on the 65,536-point pair
+      (register_pair_step, register_pair_two_stage and register_pair_staged
+      with use_cell_fpfh=False), a warm-up and three repeats each under
+      the rule; K5, K6 and K7 checked at 262,144 points, then one
       262,144-point pair.  Keypoint-any SHOT (descriptor shot; bench.py with
       LGR_BENCH_DESC=shot in keypoint-any mode): the 65,536-point pair once,
       warm, K7 at D = 352 over 65,536 x 65,536 checked, a 4,096-point pair
@@ -79,14 +83,22 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       the reference's default configuration with the combination metric (H1:
       SHOT, the AUTO radius, the host pyramid) and FPFH at the fixed radius
       with lr matching and the weighted closest-plane metric, solved by
-      RANSAC and by GROR (H2); it must launch K2-K4, K5's full pass and K7
-      and no K1 or K6 form, and one launch each of K2-K4, K5 and K7 (D = 33
-      and 352) is captured at its shape in this process and held against
-      its plain version.  Each result row must be converged with r_err <
-      0.05 rad and t_err and overlap_rmse < distance_thr, `metric`'s cached
-      inliers within 1 % of the alignment's, `measure`'s success rate 1; each
-      command's step times, peak device memory and K1-K7 launches are
-      printed.
+      RANSAC and by GROR (H2), RoPS (H3), USC with ground-truth frames (H4),
+      FPFH with ground-truth frames and one_sided matching (H5) and the
+      default configuration with the bf16 matcher (H6, the staged pyramid);
+      it must launch K2-K4, K5's full pass, K7 in both forms and K1 (H6) and
+      no K1 slot list, K5 subset or K6 form, and one launch each of K2-K4,
+      K2 on the r / 5 plan of a level surface, K5 and K7 (D = 33, 135, 352,
+      1,960 and the bf16 form) is captured at its shape in this process and
+      held against its plain version.  In the same process: the pair
+      registered with an initial guess (the ground truth turned by 2 degrees
+      and moved by distance_thr), GROR's own preparation followed by
+      align_gror, and the hypothesis pool (the ground truth among two
+      turned poses must win).  Each result row must be converged with r_err
+      < 0.05 rad and t_err and overlap_rmse < distance_thr, `metric`'s
+      cached inliers within 1 % of the alignment's, `measure`'s success
+      rate 1; each command's step times, peak device memory and K1-K7
+      launches are printed.
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -104,6 +116,7 @@ non-zero without those lines.  Needs one CUDA device; JAX is never imported.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -497,7 +510,7 @@ def check_nn_edges(dev):
 
     rng = np.random.default_rng(11)
     nt = 5003
-    for D in (1, 33, 352, 512):
+    for D in (1, 33, 135, 352, 512, 1960):
         t = torch.from_numpy(rng.normal(size=(nt, D)).astype(np.float32)).to(dev)
         tv = torch.from_numpy(rng.random(nt) > 0.05).to(dev)
         for nq in (1, 127, 129, 22203):
@@ -511,6 +524,14 @@ def check_nn_edges(dev):
             near = (d2k - d2p).abs() <= 1e-5 * d2p.abs() + 1e-5
             assert bool(near[diff].all()), f"K7 D={D} nq={nq}: an index differs beyond a tie"
             assert bool(tv[ik.long()].all()), f"K7 D={D} nq={nq}: an invalid row won"
+            if D in (33, 352):
+                # the bf16 form: the kernel on rounded copies against the
+                # plain product of the same rounded rows
+                d2k, ik = nn_l2.nn_l2_bf16_cuda(q, t, tv)
+                d2p, ip = nn_l2.nn_l2_plain(q, t, tv, bf16=True)
+                torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-5)
+                near = (d2k - d2p).abs() <= 1e-5 * d2p.abs() + 1e-5
+                assert bool(near[ik != ip].all()), f"K7 bf16 D={D} nq={nq}: index beyond a tie"
     resident = nn_l2._resident_blocks(dev, 33)
     for nq in (129, 22203):
         S, per = nn_l2.split_plan(nq, nt, resident)
@@ -530,7 +551,8 @@ def check_nn_edges(dev):
         d2k, ik = nn_l2.nn_l2_cuda(torch.from_numpy(q).to(dev), tt, torch.zeros_like(tv))
         assert bool((d2k == nn_l2.BIG).all()) and not bool(ik.any()), "K7 with no valid row"
         log(f"# K7 split nq={nq}: {S} ranges of {per} tiles, lowest index at every cut")
-    log("# K7 edges ok: D 1/33/352/512 x nq 1/127/129/22203 vs plain, ties, no valid row")
+    log("# K7 edges ok: D 1/33/135/352/512/1960 x nq 1/127/129/22203 vs plain (bf16 form at "
+        "D 33/352), ties, no valid row")
 
 
 def check_large(dev, a, b, radii):
@@ -1419,10 +1441,10 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     """One warm-up (a first run pays for the allocator's growth: on an
     H100 the classic SHOT route took 0.6-0.8 s cold, 0.28-0.34 s warm) and
     `repeats` timed runs of pre-downsample + register_pair_staged under
-    `cfg`, with the launch counters set to 0 just before the timed runs and
-    read just after; every counter must have risen.  rule: hold each run to the
-    bench's success rule, else to a finite pose.  Returns the launch
-    counts."""
+    `cfg`, with every launch counter set to 0 just before the timed runs and
+    read just after; those of `counters` must have risen.  rule: hold each
+    run to the bench's success rule, else to a finite pose.  Returns every
+    wrapper's launch count."""
     import torch
 
     from lidar_global_registration_tpu_torch.types import SEED
@@ -1431,8 +1453,7 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
     torch.cuda.reset_peak_memory_stats(dev)
     register_iss(S, cfg, SEED)  # warm-up
     torch.cuda.synchronize()
-    for c in counters:
-        c.launches = 0
+    zero_counters()
     levels = 0
     for r in range(repeats):
         av = S["a"] + 1e-5 * (r + 1)  # vary the input per repeat, as bench.py:313
@@ -1454,11 +1475,12 @@ def iss_runs(S, cfg, counters, label, repeats: int, rule: bool):
         log("#   stages (s): " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
         assert finite, f"{label} repeat {r}: non-finite pose"
         assert ok or not rule, f"{label} repeat {r} failed the bench's success rule"
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counters()
+    need = [c.__name__ for c in counters]
     log(f"# launches in the {label} runs: {launches}")
-    assert all(n > 0 for n in launches.values()), f"a kernel of the {label} path was never launched"
+    check_counts(label, launches, need, off=())
     # the pyramid launches K1 (and for FPFH K5, K6) once per level per side
-    per_level = [n for k, n in launches.items() if k.split("_")[0] in ("surface", "spfh", "combine")]
+    per_level = [launches[k] for k in need if k.split("_")[0] in ("surface", "spfh", "combine")]
     assert all(n >= levels for n in per_level), f"{label}: fewer launches than levels ({levels})"
     log(f"#   peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return launches
@@ -1670,18 +1692,78 @@ WRAPPER_OF = {
     **dict.fromkeys(("surface", "surface_fs", "surface_pn", "surface_pyr_fine",
                      "surface_pyr_coarse"), "surface_cuda"),
     "surface_at": "surface_at_cuda",
-    **{k + s: k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms") for s in ("", "_pn")},
-    **dict.fromkeys(("spfh", "spfh_262k", "spfh_work_full"), "spfh_cuda"),
+    **{k + s: k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms")
+       for s in ("", "_pn", "_gror")},
+    **dict.fromkeys(("spfh", "spfh_262k", "spfh_work_full", "spfh_gror"), "spfh_cuda"),
     **dict.fromkeys(("spfh_at", "spfh_at_classic", "spfh_at_pyr_fine", "spfh_at_pyr_coarse"),
                     "spfh_at_cuda"),
     **dict.fromkeys(("combine", "combine_262k", "combine_work_full"), "combine_cuda"),
     **dict.fromkeys(("combine_at", "combine_at_classic", "combine_at_pyr_fine",
                      "combine_at_pyr_coarse"), "combine_at_cuda"),
     **dict.fromkeys(("nn_l2", "nn_l2_262k", "nn_l2_d352_64k", "nn_l2_iss", "nn_l2_d352",
-                     "nn_l2_pyr", "nn_l2_host_d33", "nn_l2_host_d352"), "nn_l2_cuda"),
+                     "nn_l2_pyr", "nn_l2_host_d33", "nn_l2_host_d352", "nn_l2_host_d135",
+                     "nn_l2_host_d1960", "nn_l2_gror"), "nn_l2_cuda"),
+    "nn_l2_bf16_host": "nn_l2_bf16_cuda",
     **{k + "_host": k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms")},
+    "iss_count_r5": "iss_count_cuda",
     "spfh_host": "spfh_cuda",
 }
+# every kernel wrapper of the port (each its own launch counter), as the
+# CLI's `# device` line lists them
+WRAPPERS = ("surface_cuda", "surface_at_cuda", "iss_count_cuda", "iss_saliency_cuda",
+            "iss_nms_cuda", "spfh_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda",
+            "nn_l2_cuda", "nn_l2_bf16_cuda")
+
+
+def _wrapper(name: str):
+    """The wrapper now bound under `name` in its module (a recorder's hook
+    while one is in force: the wrapper's body then counts into the hook)."""
+    from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
+
+    return getattr(nn_l2 if name.startswith("nn_l2") else cellgrid, name)
+
+
+def zero_counters() -> None:
+    for name in WRAPPERS:
+        _wrapper(name).launches = 0
+
+
+def read_counters() -> dict:
+    """Every wrapper's launches since zero_counters."""
+    return {name: _wrapper(name).launches for name in WRAPPERS}
+
+
+def check_counts(label: str, got: dict, need, off=None) -> None:
+    """The forms in `need` rose; every other form (or those in `off`) did
+    not run."""
+    assert all(got[w] > 0 for w in need), f"{label}: a kernel never ran: {got}"
+    off = [w for w in WRAPPERS if w not in need] if off is None else off
+    assert all(got[w] == 0 for w in off), f"{label}: a form off its path ran: {got}"
+
+
+@contextlib.contextmanager
+def recorder(got: dict, specs):
+    """While in force, each wrapper of specs = [(module, name, key or
+    None)] is replaced by a hook that keeps its first call's arguments in
+    got[key(*args) if key else name] and then calls it.  The wrapper's body
+    counts into `<module>.<name>.launches`, that is the hook's, so
+    zero_counters / read_counters see these launches and the wrapper's own
+    count does not; the wrappers are restored on exit."""
+    originals = []
+    try:
+        for mod, name, key in specs:
+            fn = getattr(mod, name)
+            originals.append((mod, name, fn))
+
+            def hook(*args, fn=fn, name=name, key=key):
+                got.setdefault(key(*args) if key else name, args)
+                return fn(*args)
+            hook.launches = 0
+            setattr(mod, name, hook)
+        yield got
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
 
 CLI_DIR = ROOT / "chiprun_out" / "cli"
 CLI_TIMEOUT = 600  # seconds for one command of the CLI phase
@@ -1690,7 +1772,7 @@ CLI_TIMEOUT = 600  # seconds for one command of the CLI phase
 CLI_WRAPPERS = (("surface", "surface_cuda"), ("iss_count", "iss_count_cuda"),
                 ("iss_saliency", "iss_saliency_cuda"), ("iss_nms", "iss_nms_cuda"),
                 ("spfh", "spfh_at_cuda"), ("combine", "combine_at_cuda"), ("nn_l2", "nn_l2_cuda"))
-CLI_OFF = ("surface_at_cuda", "spfh_cuda", "combine_cuda")
+CLI_OFF = ("surface_at_cuda", "spfh_cuda", "combine_cuda", "nn_l2_bf16_cuda")
 
 
 def write_cli_scene(dev, n: int, tag: str) -> Path:
@@ -1792,44 +1874,64 @@ def cli_results(d: Path, n_rows: int) -> list[dict]:
 # the host pyramid, align_ransac / align_gror): H1 is the reference's default
 # configuration with the AlignmentParameters default metric (combination),
 # H2 FPFH at a fixed radius with lr matching and the weighted closest-plane
-# metric, solved by RANSAC and by GROR.
+# metric, solved by RANSAC and by GROR; H3 RoPS with its own frames (the
+# default lrf), H4 USC with ground-truth frames, H5 FPFH with ground-truth
+# frames (which FPFH does not read) and one_sided matching, each with the
+# config's defaults otherwise (ISS, cluster or one_sided, uniformity, the
+# AUTO radius); H6 the bf16 matcher on the reference's default SHOT
+# configuration, which stays in the staged envelope (the staged pyramid).
 HOST_H1 = "lrf: gravity\nmetric: combination\n"
 HOST_H2 = ("descriptor: fpfh\nkeypoint: iss\nmatching: lr\nmetric: weighted_closest_plane\n"
            "weight: exp_curvature\n")
-# the forms the host path launches (K2-K4, K5's full pass, K7) and those it
-# never runs (K1: the loader's and the levels' normals are kNN; K5's subset
-# form; K6: the keypoints are not rows of a level surface)
-HOST_ON = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda", "spfh_cuda", "nn_l2_cuda")
-HOST_OFF = ("surface_cuda", "surface_at_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda")
+HOST_H3 = "descriptor: rops\n"
+HOST_H4 = "descriptor: usc\nlrf: gt\n"
+HOST_H5 = "descriptor: fpfh\nlrf: gt\nmatching: one_sided\n"
+HOST_H6 = "lrf: gravity\nbf16_matching: true\n"
+# the forms the host process launches (K2-K4, K5's full pass, K7 in both
+# forms; K1 in H6's staged pyramid) and those it never runs (K1's slot list:
+# the loader's and the host levels' normals are kNN; K5's subset form: H6 is
+# SHOT; K6: the host keypoints are not rows of a level surface)
+HOST_ON = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda", "spfh_cuda", "nn_l2_cuda",
+           "nn_l2_bf16_cuda", "surface_cuda")
+HOST_OFF = ("surface_at_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda")
+HOST_ROWS = [("shot", "ransac"), ("fpfh", "ransac"), ("fpfh", "gror"), ("rops", "ransac"),
+             ("usc", "ransac"), ("fpfh", "ransac"), ("shot", "ransac")]
 
 
 def host_run(d: Path, fr: float) -> dict:
-    """H1 and H2 (RANSAC and GROR) as one `alignment` process over a
+    """H1-H6 (H2 with RANSAC and GROR) as one `alignment` process over a
     `tests:` list on the scans in d; every result row held to the success
     rules.  Returns the run (seconds, launches, densities)."""
     h2 = HOST_H2 + f"feature_radius: {fr!r}\n"
     (d / "host.yaml").write_text("tests:\n" + "".join(
         "    - test:\n" + "".join(f"        {ln}\n" for ln in (CLI_SCENE + body).strip().splitlines())
-        for body in (HOST_H1, h2 + "alignment: [ransac, gror]\n")))
+        for body in (HOST_H1, h2 + "alignment: [ransac, gror]\n", HOST_H3, HOST_H4, HOST_H5,
+                     HOST_H6)))
     run = run_cli(d, "alignment", "host.yaml", "alignment_host_1m")
-    rows = cli_results(d, 3)
-    assert [(r["descriptor"], r["alignment_type"]) for r in rows] == [
-        ("shot", "ransac"), ("fpfh", "ransac"), ("fpfh", "gror")], rows
+    rows = cli_results(d, len(HOST_ROWS))
+    assert [(r["descriptor"], r["alignment_type"]) for r in rows] == HOST_ROWS, rows
+    assert [r["lrf_type"] for r in rows[3:]] == ["default", "gt", "gt", "gravity"], rows
+    assert rows[5]["matching_type"] == "one_sided", rows[5]
     got = run["launches"]
     assert all(got.get(w, 0) > 0 for w in HOST_ON), f"host path: a kernel never ran: {got}"
     assert all(got[w] == 0 for w in HOST_OFF), f"host path: a form off its path ran: {got}"
     return run
 
 
-def host_captures(d: Path, fr: float, dev) -> tuple[dict, float]:
-    """One launch each of K2 (with its plan, for K3 and K4), K5's full pass
-    and K7 at D = 33 and 352, captured at the shapes the host path gives
-    them: the loader and the correspondence search of H1 (SHOT) and H2
-    (FPFH at radius fr) run in this process on the scans in d, with each
-    wrapper wrapped by a recorder.  Returns ({wrapper or nn_l2_d<D>: its
-    first call's arguments}, the source's ISS radius)."""
-    import os
+HOST_CONFIGS = (("host_h1", HOST_H1), ("host_h2", HOST_H2), ("host_h3", HOST_H3),
+                ("host_h4", HOST_H4), ("host_h6", HOST_H6))
 
+
+def host_captures(d: Path, fr: float, dev):
+    """One launch each of K2 (with its plan, for K3 and K4), K2 on the r / 5
+    plan of a level surface (RoPS's counts), K5's full pass and K7 at D =
+    33, 135, 352 and 1,960 and in its bf16 form, captured at the shapes the
+    host path gives them: the loader, then the correspondence search of H1
+    (SHOT), H2 (FPFH at radius fr), H3 (RoPS) and H4 (USC) and the staged
+    registration of H6 (bf16) run in this process on the scans in d, with
+    each wrapper wrapped by a recorder.  Returns ({wrapper or nn_l2_d<D> or
+    radius_counts: its first call's arguments}, the source's ISS radius,
+    the loaded pair (src, tgt, its loader outputs) for host_extras)."""
     from lidar_global_registration_tpu_torch.models import pipeline as tp
     from lidar_global_registration_tpu_torch.models.pyramid import (
         feature_based_correspondence_search,
@@ -1837,87 +1939,306 @@ def host_captures(d: Path, fr: float, dev) -> tuple[dict, float]:
     from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
     from lidar_global_registration_tpu_torch.utils.config import Config
 
-    for name, body in (("host_h1", HOST_H1), ("host_h2", HOST_H2 + f"feature_radius: {fr!r}\n")):
-        cli_config(d, name, body)
-    got, originals = {}, []
-
-    def record(mod, name, key=None):
-        fn = getattr(mod, name)
-        originals.append((mod, name, fn))
-
-        def hook(*args):
-            got.setdefault(key(*args) if key else name, args)
-            return fn(*args)
-        # the wrapper's body counts into `<module>.<name>.launches`, now the
-        # hook's: these calls stay out of the wrapper's own count
-        hook.launches = 0
-        setattr(mod, name, hook)
-
-    for name in ("iss_count_cuda", "spfh_cuda"):
-        record(cellgrid, name)
-    record(nn_l2, "nn_l2_cuda", key=lambda q, *_a: f"nn_l2_d{q.shape[1]}")
-    cwd = os.getcwd()
-    os.chdir(d)
-    try:
+    for name, body in HOST_CONFIGS:
+        cli_config(d, name, body + (f"feature_radius: {fr!r}\n" if name == "host_h2" else ""))
+    got = {}
+    specs = [(cellgrid, "iss_count_cuda", None), (cellgrid, "spfh_cuda", None),
+             (cellgrid, "radius_counts", None),
+             (nn_l2, "nn_l2_cuda", lambda q, *_a: f"nn_l2_d{q.shape[1]}"),
+             (nn_l2, "nn_l2_bf16_cuda", None)]
+    with recorder(got, specs), contextlib.chdir(d):
+        loaded = tp.load_point_clouds(Config.load("host_h1.yaml"), dev)
+        (_tn, src, tgt, _fs, _ft, ds, dt, na, vps, vpt) = loaded
         radii = []
-        for name in ("host_h1", "host_h2"):
+        for name, _body in HOST_CONFIGS:
             config = Config.load(f"{name}.yaml")
-            (_tn, src, tgt, _fs, _ft, ds, dt, na, vps, vpt) = tp.load_point_clouds(config, dev)
             (params,) = tp.parameters_from_config(config, ds, dt, na, vps, vpt)
+            params = params.replace(ground_truth=np.asarray(tp.ground_truth(config)))
             radii.append(float(params.iss_radius_src))  # K2's first launch: H1's source
+            if name == "host_h6":
+                res = tp.align_point_clouds(src, tgt, params, save_artifacts=False, device=dev)
+                log(f"#   {name} staged in this process: converged={res.converged}, "
+                    f"{int(res.correspondences.count())} correspondences")
+                continue
             c = feature_based_correspondence_search(src, tgt, params)
             log(f"#   {name} search in this process: {int(c.count())} correspondences")
-    finally:
-        os.chdir(cwd)
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    assert {"iss_count_cuda", "spfh_cuda", "nn_l2_d33", "nn_l2_d352"} <= got.keys(), got.keys()
-    return got, radii[0]
+    want = {"iss_count_cuda", "spfh_cuda", "radius_counts", "nn_l2_d33", "nn_l2_d135",
+            "nn_l2_d352", "nn_l2_d1960", "nn_l2_bf16_cuda"}
+    assert want <= got.keys(), got.keys()
+    return got, radii[0], (src, tgt, ds, dt, na, vps, vpt)
+
+
+def spfh_record(name: str, plan_f, r2f, cen) -> dict:
+    """K5's full pass on one captured plan against its plain version: equal
+    pair counts, bin-edge moves only."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    sp_k, c_k = cg.spfh_cuda(plan_f, r2f, cen)
+    (sp_p, c_p), k5_plain_ms = timed_once(lambda: cg.spfh_plain(plan_f, r2f, cen))
+    assert torch.equal(c_k, c_p), f"K5 ({name}) pair counts differ"
+    f5 = frac_off(sp_k, sp_p)
+    assert f5 < 1e-3, f"K5 ({name}): {f5:.2e} off by > 0.5"
+    rec = dict(
+        name=name, route="cuda", source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1554",
+        max_abs_err=float((sp_k - sp_p).abs().max()), queries=int(plan_f.n_valid),
+        ms=cuda_ms(lambda: cg.spfh_cuda(plan_f, r2f, cen), 5), plain_ms=k5_plain_ms,
+        **stencil_bound("spfh", plan_f, c_p.sum(), tbytes(
+            plan_f.pts, plan_f.nrm, plan_f.cell_of, plan_f.cols, sp_k, c_k)), library_ms=None)
+    log(f"# K5 {name} ok: {plan_f.n_valid} surface rows, frac_off={f5:.2e}, {rec['ms']:.4f} ms")
+    return rec
+
+
+def nn_record(name: str, q, t, tv, bf16: bool = False) -> dict:
+    """K7 (or its bf16 form) on one captured input against its plain
+    version: equal indices, equal distances at D = 33 and 352 in float32
+    (wider products and the rounded copies: d2 to a few float32 roundings
+    of the expansion)."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import nn_l2
+
+    D = int(q.shape[1])
+    kernel = nn_l2.nn_l2_bf16_cuda if bf16 else nn_l2.nn_l2_cuda
+    d2k, ik = kernel(q, t, tv)
+    d2p, ip = nn_l2.nn_l2_plain(q, t, tv, bf16=bf16)
+    assert torch.equal(ik, ip), f"K7 ({name}) indices differ"
+    if D in (33, 352) and not bf16:
+        assert torch.equal(d2k, d2p), f"K7 ({name}) distances differ"
+    torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-5)
+    ql, tl = (nn_l2.bf16_round(q), nn_l2.bf16_round(t)) if bf16 else (q, t)
+    rec = dict(
+        name=name, route="cuda", source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
+        max_abs_err=float((d2k - d2p).abs().max()),
+        shape=[int(q.shape[0]), int(t.shape[0]), D], valid_train=int(tv.sum()),
+        ms=cuda_ms(lambda: kernel(q, t, tv), 10),
+        plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(q, t, tv, bf16=bf16), 2),
+        **nn_bound(q, t, tv, d2k, ik), library_ms=cuda_ms(lambda: library_nn(ql, tl, tv), 2))
+    log(f"# K7 {name} ok: {q.shape[0]} x {t.shape[0]} rows, D = {D}, indices exact, "
+        f"{rec['ms']:.4f} ms")
+    return rec
 
 
 def host_records(got: dict, r_iss: float) -> list[dict]:
     """The host path's captured launches against their plain versions: K2
-    and K4 exact, K3 within saliency_err's bounds (on the same plan), K5's
-    full pass with equal pair counts and bin-edge moves only, K7 exact."""
+    and K4 exact (K2 also on the r / 5 plan), K3 within saliency_err's
+    bounds (on the same plan), K5's full pass with equal pair counts and
+    bin-edge moves only, K7 with equal indices at every width and in its
+    bf16 form (equal distances too at D = 33 and 352)."""
     import torch
 
     from lidar_global_registration_tpu_torch.ops import cellgrid as cg
-    from lidar_global_registration_tpu_torch.ops import nn_l2
 
     pallas = "lidar_global_registration_tpu/ops/pallas/cellgrid.py:"
     plan, _r2 = got["iss_count_cuda"]
     records = iss_records(plan, r_iss, "_host")
-    plan_f, r2f, cen = got["spfh_cuda"]
-    sp_k, c_k = cg.spfh_cuda(plan_f, r2f, cen)
-    (sp_p, c_p), k5_plain_ms = timed_once(lambda: cg.spfh_plain(plan_f, r2f, cen))
-    assert torch.equal(c_k, c_p), "K5 (host level surface) pair counts differ"
-    f5 = frac_off(sp_k, sp_p)
-    assert f5 < 1e-3, f"K5 (host level surface): {f5:.2e} off by > 0.5"
+    records.append(spfh_record("spfh_host", *got["spfh_cuda"]))
+    # K2 on the r / 5 plan of a level surface (the RoPS / USC weights):
+    # integer counts and their reciprocals, exact
+    xyz5, valid5, r5 = got["radius_counts"]
+    plan5 = cg.plan_grid(xyz5, valid5, r5)
+    r25 = cg._f32_square(r5)
+    (c_k, inv_k), (c_p, inv_p) = cg.iss_count_cuda(plan5, r25), cg.iss_count_plain(plan5, r25)
+    assert torch.equal(c_k, c_p) and torch.equal(inv_k, inv_p), "K2 (r / 5 plan) differs"
     records.append(dict(
-        name="spfh_host", route="cuda", source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
-        replaces=pallas + "1554", max_abs_err=float((sp_k - sp_p).abs().max()),
-        queries=int(plan_f.n_valid), ms=cuda_ms(lambda: cg.spfh_cuda(plan_f, r2f, cen), 5),
-        plain_ms=k5_plain_ms, **stencil_bound("spfh", plan_f, c_p.sum(), tbytes(
-            plan_f.pts, plan_f.nrm, plan_f.cell_of, plan_f.cols, sp_k, c_k)), library_ms=None))
-    log(f"# K5 spfh_host ok: {plan_f.n_valid} level-surface rows, frac_off={f5:.2e}, "
-        f"{records[-1]['ms']:.4f} ms")
-    for D in (33, 352):
-        q, t, tv = got[f"nn_l2_d{D}"]
-        d2k, ik = nn_l2.nn_l2_cuda(q, t, tv)
-        d2p, ip = nn_l2.nn_l2_plain(q, t, tv)
-        assert torch.equal(ik, ip) and torch.equal(d2k, d2p), f"K7 (host, D = {D}) differs"
-        records.append(dict(
-            name=f"nn_l2_host_d{D}", route="cuda",
-            source="lidar_global_registration_tpu_torch/csrc/nn_l2.cu",
-            replaces="lidar_global_registration_tpu/ops/pallas/topk_l2.py:26",
-            max_abs_err=float((d2k - d2p).abs().max()),
-            shape=[int(q.shape[0]), int(t.shape[0]), D], valid_train=int(tv.sum()),
-            ms=cuda_ms(lambda: nn_l2.nn_l2_cuda(q, t, tv), 10),
-            plain_ms=cuda_ms(lambda: nn_l2.nn_l2_plain(q, t, tv), 2),
-            **nn_bound(q, t, tv, d2k, ik), library_ms=cuda_ms(lambda: library_nn(q, t, tv), 2)))
-        log(f"# K7 nn_l2_host_d{D} ok: {q.shape[0]} x {t.shape[0]} rows, exact, "
-            f"{records[-1]['ms']:.4f} ms")
+        name="iss_count_r5", route="cuda", source="lidar_global_registration_tpu_torch/csrc/iss.cu",
+        replaces=pallas + "1322", max_abs_err=float((c_k - c_p).abs().max()),
+        queries=int(plan5.n_valid), radius=float(r5),
+        ms=cuda_ms(lambda: cg.iss_count_cuda(plan5, r25), 5),
+        plain_ms=cuda_ms(lambda: cg.iss_count_plain(plan5, r25), 1),
+        **stencil_bound("iss_count", plan5, c_p.sum(), tbytes(
+            plan5.pts, plan5.cell_of, plan5.cols, c_k, inv_k)), library_ms=None))
+    log(f"# K2 iss_count_r5 ok: {plan5.n_valid} level-surface rows at r/5 = {r5:.4f}, mean count "
+        f"{float(c_p.float().mean()):.2f}, exact, {records[-1]['ms']:.4f} ms")
+    for D in (33, 135, 352, 1960):
+        records.append(nn_record(f"nn_l2_host_d{D}", *got[f"nn_l2_d{D}"]))
+    records.append(nn_record("nn_l2_bf16_host", *got["nn_l2_bf16_cuda"], bf16=True))
     return records
+
+
+def held_to_rules(label: str, src, tgt, T, T_gt, thr: float, converged: bool) -> dict:
+    """A host result held to the success rules (main.cpp:312-382):
+    converged, r_err < 0.05 rad, t_err and overlap_rmse < distance_thr."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.analysis import overlap_rmse
+    from lidar_global_registration_tpu_torch.ops.transform import rotation_translation_error
+
+    r, t = (float(v) for v in rotation_translation_error(
+        torch.as_tensor(np.asarray(T, np.float32)), torch.as_tensor(np.asarray(T_gt, np.float32))))
+    ov = overlap_rmse(src, tgt, T, T_gt, thr)
+    log(f"#   {label}: converged={converged} r_err={r:.5f} t_err={t:.4f} overlap_rmse={ov:.4f} "
+        f"thr={thr:g}")
+    assert converged and r < R_ERR_MAX and t < thr and ov < thr, label
+    return dict(r_err=r, t_err=t, overlap_rmse=ov)
+
+
+def _turn_z(T, degrees: float, shift) -> np.ndarray:
+    c, s = np.cos(np.deg2rad(degrees)), np.sin(np.deg2rad(degrees))
+    D = np.eye(4)
+    D[:2, :2] = [[c, -s], [s, c]]
+    D[:3, 3] = shift
+    return (D @ np.asarray(T, np.float64)).astype(np.float32)
+
+
+HOST_GUESS = "descriptor: fpfh\nkeypoint: iss\nmatching: lr\nmetric: uniformity\n"
+
+
+def host_extras(d: Path, fr: float, dev, loaded) -> dict:
+    """Three more host-path phases on the loaded 1M pair, in this process,
+    each with its launch counters set to 0 before it and required to rise:
+    (1) align_point_clouds with an initial guess (the ground truth turned
+    by 2 degrees about z and moved by distance_thr along x; FPFH at the
+    fixed radius fr, lr matching, uniformity): the local matcher with a
+    search radius 1.25 x the guess's largest displacement of a source point;
+    (2) GROR's own preparation (voxel, kNN-30 normals, ISS, FPFH, mutual
+    1-NN) at resolution = the larger density the loader printed (the
+    preprocessed clouds' spacing), then align_gror at distance_thr; (3) the
+    hypothesis pool: choose_best_hypothesis over the prepared
+    correspondences and a pool of two turned poses and the ground truth,
+    which must win (it runs no kernel: its overlap queries are PyTorch).
+    Each phase reads every wrapper's counter: the forms it needs must rise,
+    every other form must stay at 0.  GROR's preparation runs under the
+    recorder, which keeps the first call of K2 (its plan, for K3 and K4),
+    K5's full pass and K7 for gror_records.  Each pose is held to the
+    success rules.  Returns (each phase's launches and seconds, the
+    captured calls, the ISS radius of GROR's preparation)."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models import pipeline as tp
+    from lidar_global_registration_tpu_torch.models.gror import align_gror, gror_preparation
+    from lidar_global_registration_tpu_torch.models.hypotheses import choose_best_hypothesis
+    from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
+    from lidar_global_registration_tpu_torch.utils.config import Config
+
+    src, tgt, ds, dt, na, vps, vpt = loaded
+    iss = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda")
+    out, captured = {}, {}
+
+    def phase(label, need, fn):
+        zero_counters()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        got = read_counters()
+        log(f"#   {label}: {dt_s:.3f} s, launches {got}")
+        check_counts(label, got, need)
+        out[label] = dict(seconds=dt_s, launches=got)
+        return result
+
+    cli_config(d, "host_guess", HOST_GUESS + f"feature_radius: {fr!r}\n")
+    with contextlib.chdir(d):
+        config = Config.load("host_guess.yaml")
+        (params,) = tp.parameters_from_config(config, ds, dt, na, vps, vpt)
+        T_gt = np.asarray(tp.ground_truth(config), np.float32)
+        thr = float(params.distance_thr)
+        G = _turn_z(T_gt, 2.0, [thr, 0.0, 0.0])
+        moved = lambda T: torch.stack(  # noqa: E731
+            [sum(float(T[i, j]) * src.xyz[:, j] for j in range(3)) + float(T[i, 3])
+             for i in range(3)], 1)[src.valid]
+        reach = float((moved(G) - moved(T_gt)).norm(dim=1).max())
+        params = params.replace(guess=G, match_search_radius=1.25 * reach, ground_truth=T_gt)
+        log(f"# guess: the GT turned 2 deg about z and moved by {thr:g}; moves a source point "
+            f"by up to {reach:.4f}, match_search_radius {1.25 * reach:.4f}")
+        # the host path with FPFH at a fixed radius: ISS (K2-K4) and K5's
+        # full pass; both directions' matches are the local matcher's (no K7)
+        res = phase("host_guess", (*iss, "spfh_cuda"), lambda: tp.align_point_clouds(
+            src, tgt, params, save_artifacts=False, device=dev))
+        out["host_guess"].update(held_to_rules("guess", src, tgt, res.transformation, T_gt, thr,
+                                               res.converged),
+                                 correspondences=int(res.correspondences.count()),
+                                 time_cs=res.time_cs, time_te=res.time_te)
+
+        def prep():
+            sd, td, corrs = gror_preparation(src, tgt, max(ds, dt))
+            return sd, td, corrs, align_gror(sd, td, corrs, params)
+
+        specs = [(cellgrid, "iss_count_cuda", None), (cellgrid, "spfh_cuda", None),
+                 (nn_l2, "nn_l2_cuda", None)]
+        with recorder(captured, specs):
+            sd, td, corrs, gres = phase("gror_prep", (*iss, "spfh_cuda", "nn_l2_cuda"), prep)
+        out["gror_prep"].update(held_to_rules("gror_preparation + align_gror", sd, td,
+                                              gres.transformation, T_gt, thr, gres.converged),
+                                rows=[int(sd.count()), int(td.count())],
+                                correspondences=int(corrs.count()))
+        pool = [_turn_z(T_gt, 3.0, [2 * thr, 0, 0]), T_gt, _turn_z(T_gt, -4.0, [0, 2 * thr, 0])]
+        best = phase("hypotheses", (), lambda: choose_best_hypothesis(
+            sd, td, corrs, params.replace(testname="host_pool"), pool))
+        assert np.array_equal(np.asarray(best), T_gt), "the hypothesis pool: the GT lost"
+        rows = (d / "data/debug/test_hypotheses.csv").read_text().strip().splitlines()
+        for ln in rows[-4:]:
+            log(f"#   hypothesis {ln}")
+    return out, captured, 2.0 * max(ds, dt)
+
+
+def gror_records(got: dict, r_iss: float) -> list[dict]:
+    """GROR's preparation's first launches on the voxel-downsampled 1M
+    clouds against their plain versions: K2-K4 on its ISS plan at 2 x
+    resolution (iss_records' checks), K5's full pass at 8 x resolution, K7
+    on the keypoints' FPFH-33 (equal indices and distances)."""
+    plan, _r2 = got["iss_count_cuda"]
+    records = iss_records(plan, r_iss, "_gror")
+    records.append(spfh_record("spfh_gror", *got["spfh_cuda"]))
+    records.append(nn_record("nn_l2_gror", *got["nn_l2_cuda"]))
+    return records
+
+
+def one_graph_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
+    """The JAX package's one-graph entry points on the bench's 65,536-point
+    keypoint-any pair (bench.py:177-190, its settings bench.py:238-256):
+    register_pair_step, register_pair_two_stage and register_pair_staged's
+    grid-hash route (use_cell_fpfh=False), each a warm-up and 3 repeats
+    held to the bench's rule (bench.py:327), every counter set to 0 before
+    and read after: K5's full pass and K7 must rise, every other form (K1,
+    ISS with use_iss=False, K6, the bf16 form) stay at 0.  Returns each
+    entry's launches and seconds."""
+    import dataclasses
+
+    import torch
+
+    from lidar_global_registration_tpu_torch.models import flagship as fl
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    cfg = fl.FlagshipConfig(rounds=8, hypothesis_batch=1024, use_iss=False, match_tile=4096,
+                            metric="correspondences")
+    A, B = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    ones = torch.ones(A.shape[0], dtype=torch.bool, device=dev)
+    args = [radii[k] for k in RADII_KEYS]
+    vps = dict(vp_src=torch.from_numpy(vp_a).to(dev), vp_tgt=torch.from_numpy(vp_b).to(dev))
+    entries = {
+        "step": lambda X, g: fl.register_pair_step(X, ones, B, ones, g, *args, cfg=cfg, **vps),
+        "two_stage": lambda X, g: fl.register_pair_two_stage(X, ones, B, ones, g, *args, cfg=cfg,
+                                                             **vps),
+        "grid_hash": lambda X, g: fl.register_pair_staged(
+            X, ones, B, ones, g, *args, cfg=dataclasses.replace(cfg, use_cell_fpfh=False),
+            **vps),
+    }
+    out = {}
+    for name, run in entries.items():
+        zero_counters()
+        run(A, torch.Generator(device=dev).manual_seed(SEED))  # warm-up
+        secs = []
+        for r in range(REPEATS):
+            t0 = time.perf_counter()
+            o = run(A + 1e-5 * (r + 1), torch.Generator(device=dev).manual_seed(SEED + r))
+            o["transformation"].cpu()
+            secs.append(time.perf_counter() - t0)
+            r_err, t_err, finite = pose_error(o, T_gt)
+            conv = bool(o["converged"])
+            ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
+            log(f"# {name} repeat {r} n={A.shape[0]}: {secs[-1]:.4f} s converged={conv} "
+                f"r_err={r_err:.5f} t_err={t_err:.4f} corr={float(o['n_correspondences']):.0f} "
+                f"inliers={int(o['inliers'])} ok={ok}")
+            assert ok, f"{name} repeat {r} failed the bench's success rule"
+        got = read_counters()
+        check_counts(name, got, ("spfh_cuda", "nn_l2_cuda"))
+        out[name] = dict(seconds=secs, launches=got)
+    log(f"# one-graph entry points: {out}")
+    return out
 
 
 def cli_phase(dev):
@@ -1933,13 +2254,16 @@ def cli_phase(dev):
     at 10,485,760 points `alignment` with FPFH and the AUTO radius.  Every
     result row is held to the success rules, `metric`'s cached inliers to
     the alignment's, `measure` to a success rate of 1.  The scans are
-    deleted afterwards.  Returns (each run's kernel launches, the host
-    path's kernel records)."""
+    deleted afterwards.  Then, in this process on the loaded 1M pair, the
+    guess, GROR's preparation and the hypothesis pool (host_extras) and
+    GROR's preparation's kernels at their shapes (gror_records).  Returns
+    (each run's kernel launches, the host path's kernel records,
+    host_extras' phases)."""
     import torch
 
     from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
 
-    launches, host = {}, []
+    launches, host, extras = {}, [], {}
     fpfh = "descriptor: fpfh\nkeypoint: iss\nmatching: cluster\nmetric: uniformity\n"
     need = {"shot": [w for k, w in CLI_WRAPPERS if k not in ("spfh", "combine")],
             "fpfh": [w for _k, w in CLI_WRAPPERS]}
@@ -1972,8 +2296,12 @@ def cli_phase(dev):
                                                         tests="measure"), "measure_1m")))
                 cli_measure(d)
                 launches["cli_host_1m"] = host_run(d, fr)["launches"]
-                got, r_iss = host_captures(d, fr, dev)
+                got, r_iss, loaded = host_captures(d, fr, dev)
                 host = host_records(got, r_iss)
+                del got
+                extras, got, r_gror = host_extras(d, fr, dev, loaded)
+                del loaded
+                host += gror_records(got, r_gror)
                 del got
             else:
                 runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh_auto", fpfh),
@@ -1989,7 +2317,7 @@ def cli_phase(dev):
             assert all(got[w] == 0 for w in CLI_OFF), f"{label}: a form off the CLI path ran: {got}"
             launches[label] = got
     log(f"# launches in the CLI runs: {launches}")
-    return launches, host
+    return launches, host, extras
 
 
 def cli_metrics(d: Path, rows: list[dict]) -> None:
@@ -2214,6 +2542,11 @@ def main() -> int:
     assert bool(gpu_out["converged"]) and bool(cpu_out["converged"])
     assert rg < R_ERR_MAX and rc < R_ERR_MAX and share >= 0.9
 
+    # the one-graph entry points on the same 65,536-point pair
+    one_graph = {f"one_graph_{k}": v
+                 for k, v in one_graph_phase(dev, a, b, vp_a, vp_b, T_gt, radii).items()}
+    elapsed("one-graph entry points")
+
     # keypoint-any SHOT on the same 65,536-point pair
     records.append(any_shot_phase(dev, a, b, vp_a, vp_b, T_gt, radii))
 
@@ -2256,7 +2589,7 @@ def main() -> int:
     for rec in records:  # K1 and K7 run on the ISS routes too
         if rec["name"] in ("surface", "nn_l2"):
             for route, got in iss_launches.items():
-                rec[f"launches_{route}"] = got.get(WRAPPER_OF[rec["name"]], 0)
+                rec[f"launches_{route}"] = got[WRAPPER_OF[rec["name"]]]
     own = {"surface_at": "masked_fpfh", "nn_l2_d352": "shot", "iss_count_pn": "masked_fpfh",
            "iss_saliency_pn": "masked_fpfh", "iss_nms_pn": "masked_fpfh",
            "spfh_at_classic": "masked_fpfh", "combine_at_classic": "masked_fpfh",
@@ -2274,19 +2607,23 @@ def main() -> int:
     for rec in records:
         if rec["name"] in ("surface", "nn_l2"):
             for route, got in pyr_launches.items():
-                rec[f"launches_{route}"] = got.get(WRAPPER_OF[rec["name"]], 0)
+                rec[f"launches_{route}"] = got[WRAPPER_OF[rec["name"]]]
     records += pyr_records
 
     # the command line, as a user runs it, on the graded 1M and 10M pairs:
     # each record reads its own form's counter (0 for the forms off the path)
-    cli_launches, host = cli_phase(dev)
+    cli_launches, host, extras = cli_phase(dev)
     elapsed("CLI phase")
-    for rec in host:
-        rec["launches"] = cli_launches["cli_host_1m"][WRAPPER_OF[rec["name"]]]
+    for rec in host:  # GROR's preparation runs in its own phase of the host process
+        main_run = (extras["gror_prep"]["launches"] if rec["name"].endswith("_gror")
+                    else cli_launches["cli_host_1m"])
+        rec["launches"] = main_run[WRAPPER_OF[rec["name"]]]
     records += host
-    for rec in records:
+    for rec in records:  # every phase here read every counter
         for route, got in cli_launches.items():
             rec[f"launches_{route}"] = got[WRAPPER_OF[rec["name"]]]
+        for route, ph in {**extras, **one_graph}.items():
+            rec[f"launches_{route}"] = ph["launches"][WRAPPER_OF[rec["name"]]]
     iss_small_pair(dev, "ISS")
     iss_small_pair(dev, "pyramid", graded=True, min_share=0.9, pyramid=True)
     iss_small_pair(dev, "SHOT", **SHOT_CFG)

@@ -80,7 +80,9 @@ __device__ __forceinline__ void fma_k(const float* qk, const float* tk, int tx, 
 }
 
 // one step: a BK-dimension chunk of the query tile (rows q0..) and of the
-// train tile (rows t0..) into one shared-memory stage, 16 B per cp.async
+// train tile (rows t0..) into one shared-memory stage, 16 B per cp.async.
+// Offsets into the copies are size_t: d_pad * n_pad passes 2^31 (e.g. at
+// d = 1,960 beyond ~1.09M rows); each factor alone is an int.
 template <int BK>
 __device__ __forceinline__ void load_chunk(float (*qs)[kTile], float (*ts)[kTile],
                                            const float* __restrict__ qt,
@@ -200,7 +202,8 @@ __device__ __forceinline__ void nn_l2_block(float (*qs)[BK][kTile], float (*ts)[
   }
 }
 
-// any d <= 512: chunks of 16 dimensions, 32 KB of static shared memory
+// any d: chunks of 16 dimensions, 32 KB of static shared memory whatever d
+// is (USC's d = 1,960 runs 123 chunks a tile)
 __global__ void __launch_bounds__(kThreads, 2)
     nn_l2_kernel(const float* __restrict__ qt, const float* __restrict__ tt,
                  const float* __restrict__ qn, const float* __restrict__ tn, int nq, int nq_pad,

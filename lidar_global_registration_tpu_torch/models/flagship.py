@@ -52,13 +52,27 @@ level both ways, the cross-level consensus vote (models/pyramid.py), then
 the cluster gate of match_corr on the vote's winners.  A failed level gate
 prints the JAX package's notice and leaves for the feature-scale route.
 
+The grid-hash route (`use_cell_fpfh=False`; flagship.py:1083-1110,
+1172-1192, 1839-1855, where the JAX package goes off the TPU): per side
+_side_stage (kNN normals within the normal cell, the k = 2 density from
+them, ISS keypoints by K2-K4), then FPFH over every point at the keypoints
+(ops/fpfh.py: K5's full pass and the float32 combine) or SHOT in the
+matching region, then the same matching region.
+
 The solver stage is the prerejective RANSAC above or, with
 alignment="gror", GROR over the whole correspondence set (models/gror.py;
 flagship.py:802-829, 1951-1957).
 
-Still unported, each raising NotImplementedError that names its ROADMAP.md
-item (Queue 1): the bf16 matcher, the grid-hash FPFH of
-use_cell_fpfh=False, lrf="gt".  There are no learned weights: what
+With bf16_matching every descriptor 1-NN is the bf16 matcher (K7 on
+bfloat16-rounded copies, ops/nn_l2.py).  lrf="gt" is not gravity: SHOT
+takes its own LRF on the staged path, as in the JAX package
+(flagship.py:465, 1169).
+
+The one-graph entry points of the JAX package run on _side_stage too:
+register_pair_step (flagship.py:408-519: FPFH or SHOT over the rows at the
+keypoints, 1-NN both ways, the cluster filter over full rows or the mutual
+filter, RANSAC) and register_pair_two_stage (:1969-2028: the step with
+FPFH and the mutual filter).  There are no learned weights: what
 carries over from the JAX package is its config (`config_from_jax`) and
 the radii (ops/density.derive_radii).
 """
@@ -76,6 +90,7 @@ from lidar_global_registration_tpu_torch.models.gror import gror_solve
 from lidar_global_registration_tpu_torch.models.pyramid import (
     _cluster_distances,
     _consensus_vote,
+    _first_argmax,
 )
 from lidar_global_registration_tpu_torch.models.ransac import (
     MIN_INLIER_RATE,
@@ -89,30 +104,27 @@ from lidar_global_registration_tpu_torch.ops.downsample import (
     voxel_centroids_map,
     voxel_centroids_packed,
 )
+from lidar_global_registration_tpu_torch.ops.grid import radius_neighbors
 from lidar_global_registration_tpu_torch.ops.lrf import gravity_lrf
 from lidar_global_registration_tpu_torch.ops.metrics import (
     transform_points_soa,
     uniformity_bins,
     uniformity_entropy,
 )
+from lidar_global_registration_tpu_torch.ops.normals import normals_from_neighbors
 from lidar_global_registration_tpu_torch.ops.shot import shot
 from lidar_global_registration_tpu_torch.ops.transform import kabsch, to_matrix4
 from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, NORMAL_NR_POINTS
 
-# (field, value the port supports, ROADMAP.md Queue 1 item that ports the others)
-_SLICE_ONLY = (
-    ("bf16_matching", False, "'Host-path ops' (the bf16 matcher)"),
-    ("use_cell_fpfh", True, "'Host-path ops' (the grid-hash FPFH route of the staged path)"),
-)
+BIG = 3.0e38
 
 
 @dataclass(frozen=True)
 class FlagshipConfig:
     """The fields of the JAX FlagshipConfig the ported routes read, with
     the JAX defaults.  Every setting of use_iss, masked_features,
-    feature_scale, cluster_matching, pyramid, descriptor and alignment
-    ("ransac" | "gror") runs; bf16_matching, use_cell_fpfh=False and
-    lrf="gt" raise NotImplementedError (ROADMAP.md Queue 1)."""
+    feature_scale, cluster_matching, pyramid, descriptor, lrf, alignment
+    ("ransac" | "gror"), bf16_matching and use_cell_fpfh runs."""
 
     rounds: int = 8
     hypothesis_batch: int = 512
@@ -135,7 +147,9 @@ class FlagshipConfig:
     max_correspondences: int = 1024
     metric: str = "correspondences"
     descriptor: str = "fpfh"  # fpfh | shot
-    lrf: str = "gravity"  # SHOT frames: gravity (+ SHOT-LRF fallback) | default
+    # SHOT frames: gravity (+ SHOT-LRF fallback); any other value (default,
+    # gt) the SHOT LRF, as the JAX staged path reads it
+    lrf: str = "gravity"
     shot_k: int = 512  # SHOT neighbours per keypoint (the k nearest within r)
     # the JAX package's per-cell candidate cap of its SHOT query; the port's
     # query is exact and uncapped, so it does not read it
@@ -150,26 +164,11 @@ class FlagshipConfig:
     scale_factor: float = 2.0  # pyramid level base (config `scale`)
     pyramid_randomness: int = 1  # k-NN candidates per level entering the vote
 
-    def __post_init__(self):
-        for field, value, item in _SLICE_ONLY:
-            if getattr(self, field) != value:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} takes a route that is not "
-                    f"ported yet: see ROADMAP.md, Queue 1, {item}"
-                )
-        if self.descriptor == "shot" and self.lrf == "gt":
-            raise NotImplementedError(
-                "lrf='gt' (ground-truth frames) is not ported: see ROADMAP.md, Queue 1, "
-                "'Host-path ops' (the staged envelope never sends it here, "
-                "pipeline.py:164-166)"
-            )
-
 
 def config_from_jax(cfg: dict) -> FlagshipConfig:
     """The port's config from `dataclasses.asdict(jax_flagship_config)`:
     the fields the ported routes read are copied, the rest (which only
-    other routes read) are dropped.  Raises NotImplementedError on a
-    setting outside the ported routes."""
+    other routes read) are dropped."""
     names = {f.name for f in dataclasses.fields(FlagshipConfig)}
     return FlagshipConfig(**{k: v for k, v in cfg.items() if k in names})
 
@@ -316,6 +315,19 @@ def _centred(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return x - mean / v.to(torch.float32).mean().clamp_min(1e-9)
 
 
+def _nn_both_ways(fq, ft, qv, tv, cfg: FlagshipConfig, _t=lambda label: None):
+    """Descriptor 1-NN both ways (the bf16 matcher with cfg.bf16_matching),
+    each direction a stage of _t.  Returns (idx_st, mask_st, idx_ts,
+    mask_ts), each [rows, 1]."""
+    idx_st, _d1, mask_st = matchers.match_bf(fq, ft, qv, tv, k=1, tile=cfg.match_tile,
+                                             bf16=cfg.bf16_matching)
+    _t("match_st")
+    idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, tv, qv, k=1, tile=cfg.match_tile,
+                                             bf16=cfg.bf16_matching)
+    _t("match_ts")
+    return idx_st, mask_st, idx_ts, mask_ts
+
+
 def _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, tgt_xyz,
                               dens_s, dens_t, distance_thr: float, cfg: FlagshipConfig,
                               kc: int, cand=None):
@@ -333,8 +345,7 @@ def _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, t
     if cand is not None:
         ic_st, mc_st, ic_ts, mc_ts = cand
     else:
-        ic_st, _dc1, mc_st = matchers.match_bf(fqc, ftc, qv, tv, k=1, tile=cfg.match_tile)
-        ic_ts, _dc2, mc_ts = matchers.match_bf(ftc, fqc, tv, qv, k=1, tile=cfg.match_tile)
+        ic_st, mc_st, ic_ts, mc_ts = _nn_both_ways(fqc, ftc, qv, tv, cfg)
     clustered = cfg.use_iss and cfg.cluster_matching
     if clustered:
         ksq = _centred(src_xyz[sq_g], qv)
@@ -528,6 +539,67 @@ def _shot_stage(kp_xyz, kp_normal, kpv, surf_xyz, surf_normal, surf_valid, radiu
                 k_neighbors=cfg.shot_k, fallback_mask=needs_fb, plan=plan)
 
 
+_NORMAL_ROWS = 1 << 18  # query rows per block of _side_stage's covariances
+# _side_stage's normals: the nearest points within the normal cell (the JAX
+# FlagshipConfig.normal_k default).  The JAX package's cell caps and
+# neighbour counts of its capped ISS and FPFH queries (neighbor_cap,
+# iss_neighbors, feature_neighbors, feature_cap) are not carried: the port's
+# ISS and FPFH take every neighbour within the radius
+_NORMAL_K = 16
+
+
+def _density_from_knn(idx, dist, mask, valid):
+    """The k = 2 smoothed density (common.cpp:531-547) from the normals'
+    neighbour lists (flagship._density_from_knn): d = the distance to the
+    nearest neighbour that is not the point itself (d > 1e-12), smoothed
+    by the min with that neighbour's own d; 0 where no neighbour lies in the
+    lists.  f32[N]."""
+    seen = mask & (dist > 1e-12)
+    dmat = torch.where(seen, dist, BIG)
+    a = _first_argmax(-dmat)[:, None]  # the first of equal minima, as jnp.argmin
+    d_raw = dmat.gather(1, a)[:, 0]
+    nn = idx.gather(1, a)[:, 0]
+    has = seen.any(1)
+    d_nn = d_raw[nn]
+    out = torch.minimum(d_raw, torch.where(d_nn < BIG, d_nn, d_raw))
+    return torch.where(valid & has & (out < BIG), out, 0.0)
+
+
+def _side_stage(xyz, valid, normal_cell: float, iss_radius: float, cfg: FlagshipConfig,
+                viewpoint=None):
+    """One side's normals, keypoints and density off the cell kernels'
+    fused pass (flagship._side_stage): the _NORMAL_K nearest points within
+    the normal cell (ops/grid.radius_neighbors, exact; the JAX package keeps
+    neighbor_cap points a cell), their PCA normals oriented to the
+    viewpoint, the k = 2 density from the same lists, and the ISS keypoints
+    (use_iss: K2-K4 on a plan at the ISS radius, every neighbour within it;
+    the JAX package takes iss_neighbors within neighbor_cap a cell) or every
+    valid row.  Returns (normal f32[N, 3], kp bool[N], density f32[N])."""
+    plan = cellgrid.plan_grid(xyz, valid, normal_cell)
+    idx, dist, mask = radius_neighbors(plan, xyz, valid, float(normal_cell), _NORMAL_K)
+    normal = torch.zeros_like(xyz)
+    for a in range(0, xyz.shape[0], _NORMAL_ROWS):
+        b = a + _NORMAL_ROWS
+        normal[a:b] = normals_from_neighbors(xyz[a:b], xyz, idx[a:b], mask[a:b], viewpoint)[0]
+    density = _density_from_knn(idx, dist, mask, valid)
+    if cfg.use_iss:
+        kp = cellgrid.iss_pass(cellgrid.plan_grid(xyz, valid, iss_radius), iss_radius)[0]
+    else:
+        kp = valid
+    return normal, kp, density
+
+
+def _fpfh_fixed(xyz, normal, valid, kp, radius: float):
+    """FPFH-33 over the cloud at the rows where kp holds
+    (flagship._fpfh_fixed): ops/fpfh.fpfh with the cloud as its own
+    surface, K5's full pass and the float32 combine over every neighbour
+    within r (the JAX package keeps feature_neighbors within feature_cap a
+    cell).  Returns (feat f32[N, 33], valid bool[N])."""
+    from lidar_global_registration_tpu_torch.ops.fpfh import fpfh
+
+    return fpfh(xyz, valid & kp, xyz, normal, valid, radius, kp_normal=normal)
+
+
 def _restore_rows(ec, n_rows: int):
     """Full-row (feat, valid) from a side's compacted tuple (n, sj, g, v,
     feat) (flagship.py:1773-1779)."""
@@ -595,10 +667,7 @@ def _match_region(src, tgt, fq, fq_valid, ft, ft_valid, ec_q, ec_t, dens_s, dens
         ft, ft_valid = _shot_stage(tgt_xyz, tgt_normal, ft_valid, tgt_xyz, tgt_normal, tgt_valid,
                                    feature_radius, cfg, plan=pf_t)
         _t("shot_tgt")
-    idx_st, _d1, mask_st = matchers.match_bf(fq, ft, fq_valid, ft_valid, k=1, tile=cfg.match_tile)
-    _t("match_st")
-    idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, ft_valid, fq_valid, k=1, tile=cfg.match_tile)
-    _t("match_ts")
+    idx_st, mask_st, idx_ts, mask_ts = _nn_both_ways(fq, ft, fq_valid, ft_valid, cfg, _t)
     out = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t, distance_thr)
     _t("corr")
     return out
@@ -868,7 +937,8 @@ def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt
         for l in range(lo_m, hi_m + 1):
             fa, va = levels_a[l - min_a]
             fb, vb = levels_b[l - min_b]
-            parts.append(matchers.match_bf(fa, fb, va, vb, k=k, tile=cfg.match_tile))
+            parts.append(matchers.match_bf(fa, fb, va, vb, k=k, tile=cfg.match_tile,
+                                           bf16=cfg.bf16_matching))
         ci, cd, cm = (torch.cat(x, 1) for x in zip(*parts))
         b_idx, _b_dist, b_mask, _s_dist, _s_mask = _consensus_vote(ci, cd, cm, train_xyz, iss_r)
         return b_idx[:, None], b_mask[:, None], (ci, cd, cm)
@@ -983,6 +1053,34 @@ def _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tg
                          None, None, s["density"], t["density"], radii, cfg, _t)
 
 
+def _grid_hash_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
+    """The route of use_cell_fpfh=False (flagship.py:1083-1110, 1172-1192,
+    1839-1855, then the matching region): per side _side_stage (ISS
+    keypoints or every row), then FPFH over the cloud at the keypoints, or
+    nothing yet for SHOT, which the matching region computes at the
+    compacted keypoints (or over every masked row)."""
+    (normal_cell, _dens_s, _dens_t, iss_radius_src, iss_radius_tgt, feature_radius,
+     _thr) = radii
+    shot_mode = cfg.descriptor == "shot"
+    src_normal, src_kp, dens_s = _side_stage(src_xyz, src_valid, normal_cell, iss_radius_src, cfg,
+                                             vp_src)
+    _t("side_src")
+    tgt_normal, tgt_kp, dens_t = _side_stage(tgt_xyz, tgt_valid, normal_cell, iss_radius_tgt, cfg,
+                                             vp_tgt)
+    _t("side_tgt")
+    if shot_mode:
+        fq = ft = None
+        fq_valid, ft_valid = src_valid & src_kp, tgt_valid & tgt_kp
+    else:
+        fq, fq_valid = _fpfh_fixed(src_xyz, src_normal, src_valid, src_kp, feature_radius)
+        _t("fpfh_src")
+        ft, ft_valid = _fpfh_fixed(tgt_xyz, tgt_normal, tgt_valid, tgt_kp, feature_radius)
+        _t("fpfh_tgt")
+    return _match_region((src_xyz, src_valid, src_normal, None),
+                         (tgt_xyz, tgt_valid, tgt_normal, None), fq, fq_valid, ft, ft_valid,
+                         None, None, dens_s, dens_t, radii, cfg, _t)
+
+
 def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t,
                pyramid_debug=None):
     """The ISS routes (flagship.py:1191-1209).  With masked features: the
@@ -1028,7 +1126,7 @@ def register_pair_staged(
 ):
     """Register one padded pair on the tensors' device (the JAX
     register_pair_staged; cfg.use_iss picks the ISS or the keypoint-any
-    route).  `generator` (on the same device) drives the RANSAC draws; the
+    route, cfg.use_cell_fpfh=False the grid-hash route).  `generator` (on the same device) drives the RANSAC draws; the
     GROR solver (cfg.alignment = "gror") draws nothing and returns host
     values beside its transformation tensor.
     When `stage_times` is a dict, each stage is synchronised and its wall
@@ -1068,7 +1166,12 @@ def register_pair_staged(
                                      iss_radius_src, iss_radius_tgt, feature_radius,
                                      distance_thr))
     args = (src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
-    j, keep, thr = _iss_route(*args, pyramid_debug) if cfg.use_iss else _any_route(*args)
+    if not cfg.use_cell_fpfh:
+        j, keep, thr = _grid_hash_route(*args)
+    elif cfg.use_iss:
+        j, keep, thr = _iss_route(*args, pyramid_debug)
+    else:
+        j, keep, thr = _any_route(*args)
     if cfg.alignment == "gror":
         res = _gror_stage(src_xyz, tgt_xyz[j], keep, radii[6], cfg)
         _t("gror")
@@ -1080,3 +1183,92 @@ def register_pair_staged(
         res["correspondences"] = _corr_export(
             j, keep, thr, min(_pad_quantum(max(n_c, 1)), keep.shape[0]))
     return res
+
+
+# ---------------------------------------------------------------------------
+# the one-graph entry points: register_pair_step, register_pair_two_stage
+# ---------------------------------------------------------------------------
+def _cluster_filter_rows(xyz_s, kpv_s, xyz_t, kpv_t, idx_st, mask_st, idx_ts, mask_ts, dens_s,
+                         dens_t, cfg: FlagshipConfig):
+    """The cluster gate over full rows (flagship._cluster_filter_rows,
+    ClusterMatcher, matching.h:480-551): the keypoints' exact kc-NN per side
+    (self excluded by id, centred), _consensus_keep, and the keypoint-cloud
+    density from its column 0 as the thresholds at keypoint rows.  Returns
+    (mask_st', dens_s', dens_t')."""
+    kc = max(2, min(cfg.cluster_k, min(xyz_s.shape[0], xyz_t.shape[0]) - 1))
+    ksq, kst = _centred(xyz_s, kpv_s), _centred(xyz_t, kpv_t)
+    kq = matchers.match_bf(ksq, ksq, kpv_s, kpv_s, k=kc, exclude_diag=True)
+    kt = matchers.match_bf(kst, kst, kpv_t, kpv_t, k=kc, exclude_diag=True)
+    keep_q = _consensus_keep(idx_st[:, 0], mask_st[:, 0], idx_ts[:, 0], mask_ts[:, 0], kq, kt,
+                             cfg)
+    dens_s2 = torch.where(kpv_s, _kp_density_nearest(*(a[:, :1] for a in kq)), dens_s)
+    dens_t2 = torch.where(kpv_t, _kp_density_nearest(*(a[:, :1] for a in kt)), dens_t)
+    return mask_st & keep_q[:, None], dens_s2, dens_t2
+
+
+def _step_sides(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg):
+    """Both sides' _side_stage, then FPFH at the keypoint rows, or SHOT
+    there (gravity frames with lrf="gravity", flagship.py:465)."""
+    normal_cell, _ds, _dt, iss_src, iss_tgt, feature_radius, _thr = radii
+    out = []
+    for xyz, valid, iss_r, vp in ((src_xyz, src_valid, iss_src, vp_src),
+                                  (tgt_xyz, tgt_valid, iss_tgt, vp_tgt)):
+        normal, kp, dens = _side_stage(xyz, valid, normal_cell, iss_r, cfg, vp)
+        if cfg.descriptor == "shot":
+            feat, fv = _shot_stage(xyz, normal, valid & kp, xyz, normal, valid, feature_radius,
+                                   cfg)
+        else:
+            feat, fv = _fpfh_fixed(xyz, normal, valid, kp, feature_radius)
+        out.append((feat, fv, dens))
+    return out
+
+
+def _radii(*v) -> tuple:
+    return tuple(float(x) for x in v)
+
+
+def register_pair_step(src_xyz, src_valid, tgt_xyz, tgt_valid, generator: torch.Generator,
+                       normal_cell, density_cell_src, density_cell_tgt, iss_radius_src,
+                       iss_radius_tgt, feature_radius, distance_thr, vp_src=None, vp_tgt=None,
+                       cfg: FlagshipConfig = FlagshipConfig()):
+    """The JAX package's single-graph step (flagship.register_pair_step,
+    flagship.py:408-519) on the tensors' device: _side_stage per side, FPFH
+    or SHOT at the keypoint rows over the cloud, descriptor 1-NN both ways
+    (the bf16 matcher with cfg.bf16_matching), the cluster filter over full
+    rows (ISS with cluster matching) or the mutual filter, the
+    correspondence stage and ransac_solve.  The density cells are accepted
+    and unread, as in the JAX package (the density comes from the normals'
+    neighbours).  Not the grid-hash route: that route's matching region
+    falls back to the mutual filter when more than half the rows are
+    keypoints, where the step keeps the cluster gate over full rows.
+    Returns ransac_solve's dict."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    radii = _radii(normal_cell, density_cell_src, density_cell_tgt, iss_radius_src,
+                   iss_radius_tgt, feature_radius, distance_thr)
+    (fq, fq_valid, dens_s), (ft, ft_valid, dens_t) = _step_sides(
+        src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg)
+    idx_st, mask_st, idx_ts, mask_ts = _nn_both_ways(fq, ft, fq_valid, ft_valid, cfg)
+    clustered = cfg.use_iss and cfg.cluster_matching
+    if clustered:
+        mask_st, dens_s, dens_t = _cluster_filter_rows(
+            src_xyz, fq_valid, tgt_xyz, ft_valid, idx_st, mask_st, idx_ts, mask_ts, dens_s,
+            dens_t, cfg)
+    j, mutual, thr = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t,
+                                           radii[6], require_mutual=not clustered)
+    return ransac_solve(src_xyz, tgt_xyz[j], thr, mutual, generator, cfg)
+
+
+def register_pair_two_stage(src_xyz, src_valid, tgt_xyz, tgt_valid, generator: torch.Generator,
+                            normal_cell, density_cell_src, density_cell_tgt, iss_radius_src,
+                            iss_radius_tgt, feature_radius, distance_thr, vp_src=None,
+                            vp_tgt=None, cfg: FlagshipConfig = FlagshipConfig()):
+    """The two-program variant (flagship.register_pair_two_stage,
+    flagship.py:1969-2028): register_pair_step with FPFH (whatever
+    cfg.descriptor says, as in the JAX package's _front_stage) and the
+    mutual filter.  Eager PyTorch has no second program to split off, so
+    the split is not carried.  Returns ransac_solve's dict."""
+    return register_pair_step(src_xyz, src_valid, tgt_xyz, tgt_valid, generator, normal_cell,
+                              density_cell_src, density_cell_tgt, iss_radius_src, iss_radius_tgt,
+                              feature_radius, distance_thr, vp_src, vp_tgt,
+                              dataclasses.replace(cfg, descriptor="fpfh", cluster_matching=False))

@@ -15,8 +15,10 @@ K_optimal = 800 and resolution = distance_thr).  Stages:
 
 Plain functions on tensors, on the device of `p`; function for function the
 JAX module, names kept.  `align_gror` is the host path's solver around
-`gror_solve`; `gror_preparation` (GROR's own preprocessing, no caller on
-the command line's path) is not ported (ROADMAP.md, Queue 1, item 3).  The solver draws nothing, so on one correspondence
+`gror_solve`; `gror_preparation` is GROR's own preprocessing (no caller on
+the command line's path): voxel downsample, kNN normals, ISS keypoints
+(K2-K4), FPFH (K5's full pass) and mutual 1-NN (K7).  The solver draws
+nothing, so on one correspondence
 set both packages give the same result.  The orchestration (the stable
 order of the nodes and of the edges, the early exit once the best TCFS
 count reaches the largest RCFS bound left) runs on the host with one read
@@ -392,3 +394,44 @@ def align_gror(src: Cloud, tgt: Cloud, corrs: Correspondences, params: Alignment
                            correspondences=corrs, iterations=max(int(out["iterations"]), 1),
                            converged=bool(out["converged"]), time_te=time.time() - t0,
                            metric=float(out["metric"]))
+
+
+def gror_preparation(src: Cloud, tgt: Cloud, resolution: float):
+    """GROR's own preprocessing (gror.gror_preparation; the reference's
+    gror_pre.cpp grorPreparation) on the clouds' device: each cloud voxel
+    downsampled at `resolution`, its kNN-30 normals, ISS keypoints at 2 x
+    resolution (ops/iss: K2-K4), FPFH of the keypoints at 8 x resolution
+    (ops/fpfh: K5's full pass), then the mutual 1-NN of the descriptors
+    (K7) with threshold 2 x resolution.  Returns (src_down, tgt_down,
+    correspondences between their rows, padded to round_up(n))."""
+    from lidar_global_registration_tpu_torch.ops.downsample import voxel_downsample
+    from lidar_global_registration_tpu_torch.ops.fpfh import fpfh
+    from lidar_global_registration_tpu_torch.ops.iss import detect_keypoints
+    from lidar_global_registration_tpu_torch.ops.matchers import match_bf
+    from lidar_global_registration_tpu_torch.ops.normals import estimate_normals_knn
+    from lidar_global_registration_tpu_torch.types import round_up
+
+    def side(cloud: Cloud):
+        down = estimate_normals_knn(voxel_downsample(cloud, resolution).compact(), k=30)
+        kp = detect_keypoints(down, "iss", 2.0 * resolution)
+        kv = torch.ones(kp.shape, dtype=torch.bool, device=kp.device)
+        feat, fv = fpfh(down.xyz[kp], kv, down.xyz, down.normal, down.valid, 8.0 * resolution,
+                        kp_normal=down.normal[kp])
+        return down, kp, feat, fv
+
+    src_d, kp_s, fs, vs = side(src)
+    tgt_d, kp_t, ft, vt = side(tgt)
+    dev = src_d.xyz.device
+    i_st, d_st, m_st = match_bf(fs, ft, vs, vt, k=1)
+    i_ts, _d, m_ts = match_bf(ft, fs, vt, vs, k=1)
+    j = i_st[:, 0]
+    mutual = m_st[:, 0] & m_ts[j, 0] & (i_ts[j, 0] == torch.arange(j.shape[0], device=dev))
+    rows = torch.nonzero(mutual).squeeze(1)
+    n = int(rows.shape[0])
+    corrs = Correspondences.empty(round_up(max(n, 1)), dev)
+    corrs.query[:n] = kp_s[rows].to(corrs.query.dtype)
+    corrs.match[:n] = kp_t[j[rows]].to(corrs.match.dtype)
+    corrs.distance[:n] = d_st[rows, 0]
+    corrs.threshold.fill_(2.0 * resolution)
+    corrs.valid[:n] = True
+    return src_d, tgt_d, corrs

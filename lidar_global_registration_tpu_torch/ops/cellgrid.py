@@ -661,6 +661,16 @@ def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
     return _unsort(plan, kp, fill=False) & plan.valid, _unsort(plan, sal)
 
 
+def radius_counts(xyz: torch.Tensor, valid: torch.Tensor, radius: float) -> torch.Tensor:
+    """The valid points within `radius` of each valid row, itself included
+    (d2 <= r2): K2 (iss_count_cuda) on a plan at the radius, or its plain
+    version on the CPU.  Returns i32[N] in input order, 0 at invalid rows."""
+    plan = plan_grid(xyz, valid, radius)
+    r2 = _f32_square(radius)
+    count = (iss_count_cuda if plan.pts.is_cuda else iss_count_plain)(plan, r2)[0]
+    return _unsort(plan, count, fill=0)
+
+
 # ---------------------------------------------------------------------------
 # K5 · SPFH: Darboux pair features binned 3 x 11, x 100 / count
 # ---------------------------------------------------------------------------

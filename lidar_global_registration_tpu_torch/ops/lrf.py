@@ -3,12 +3,14 @@ the reference's estimateReferenceFrames, common.cpp:693-755).
 
   'default': the SHOT LRF (pcl::SHOTLocalReferenceFrameEstimation);
   'gravity': z = the point's normal, y = gravity x z, x = y x z, with the
-             SHOT LRF where the normal lies within 0.04 rad of gravity.
+             SHOT LRF where the normal lies within 0.04 rad of gravity;
+  'gt':      one constant frame, the axes turned by inv(R_gt).
 
 Frames are f32[M, 3, 3] with rows (x, y, z).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lidar_global_registration_tpu_torch.ops.eigen3 import _cross, eigh_sym3
@@ -62,3 +64,13 @@ def gravity_lrf(normals: torch.Tensor, gravity=None):
     x = _cross(y, z)
     x = x / (x * x).sum(-1, keepdim=True).clamp_min(1e-30).sqrt()
     return torch.stack([x, y, z], 1), needs_fallback
+
+
+def gt_lrf(n: int, ground_truth, device) -> torch.Tensor:
+    """The ground-truth frame (lrf.gt_lrf, common.cpp:697-711): the axes of
+    inv(R_gt) (its columns, the reference's x, y, z) as the rows of one
+    frame, repeated for n points.  The float32 inverse is taken on the host
+    (a 3 x 3 solve), as the JAX package's is.  Returns f32[n, 3, 3]."""
+    R = np.asarray(ground_truth, np.float32)[:3, :3]
+    frame = torch.from_numpy(np.ascontiguousarray(np.linalg.inv(R).T)).to(device)
+    return frame[None].expand(n, 3, 3).contiguous()

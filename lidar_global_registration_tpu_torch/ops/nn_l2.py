@@ -4,7 +4,17 @@ d2 = |q|^2 + |t|^2 - 2 q.t; the running argmin keeps the lowest index among
 equal minima, and an invalid train row carries |t|^2 = BIG so it never
 wins.  The kernel (csrc/nn_l2.cu) keeps the distance tile on chip and reads
 dimension-major, zero-padded copies that its wrapper makes; the plain
-version materialises the distances one query chunk at a time.
+version materialises the distances one query chunk at a time.  Any width D
+runs, in chunks of 16 dimensions (the JAX package sends D > 512 to its XLA
+matcher, matchers.py:82-85, for want of VMEM).
+
+The bf16 form (matchers.match_bf(bf16=True), matchers.py:93-107): the
+norms come from the float32 rows and the dot products from the rows
+rounded to bfloat16.  Its wrapper rounds the kernel's padded copies to
+bfloat16 and back; a product of two bfloat16 values is exact in float32, so
+the kernel's arithmetic stays IEEE float32 and computes the JAX function up
+to the order of the sums.  No bfloat16 matmul is called: on CUDA its output
+would be rounded to bfloat16.
 """
 from __future__ import annotations
 
@@ -23,11 +33,19 @@ def _norms(query, train, tvalid):
     return qn.contiguous(), tn.contiguous()
 
 
-def nn_l2_plain(query, train, tvalid, tile: int = 4096):
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def nn_l2_plain(query, train, tvalid, tile: int = 4096, bf16: bool = False):
     """Plain version: (best d2 f32[Nq], best index i32[Nq]) over chunks of
     `tile` queries (the first index of the minimum, BIG / 0 when every train
-    row is invalid)."""
+    row is invalid).  bf16: the dot products of the bfloat16-rounded rows
+    (a float32 product), the norms of the float32 rows."""
     qn, tn = _norms(query, train, tvalid)
+    if bf16:
+        query, train = bf16_round(query), bf16_round(train)
     d2_best = torch.empty((query.shape[0],), dtype=torch.float32, device=query.device)
     i_best = torch.empty((query.shape[0],), dtype=torch.int32, device=query.device)
     for s in range(0, query.shape[0], tile):
@@ -89,12 +107,10 @@ def _resident_blocks(device, d: int) -> int:
     return _RESIDENT[key]
 
 
-def nn_l2_cuda(query, train, tvalid):
-    """K7 · csrc/nn_l2.cu: same contract as nn_l2_plain (D <= 512)."""
+def _launch_nn(query, train, tvalid, bf16: bool):
+    """One K7 launch (and its merge) on the padded copies; returns (d2, idx)."""
     Nq, D = query.shape
     Nt = train.shape[0]
-    if D > 512:
-        raise ValueError(f"nn_l2_cuda: D={D} > 512")
     kernels.check(query, torch.float32, (Nq, D), "query")
     kernels.check(train, torch.float32, (Nt, D), "train")
     qn, tn = _norms(query, train, tvalid)
@@ -113,27 +129,49 @@ def nn_l2_cuda(query, train, tvalid):
     # held in names until the launch: a temporary freed at once would hand
     # its memory to the next allocation before the kernel reads it
     qt, tt = _dim_major(query, nq_pad, d_pad), _dim_major(train, nt_pad, d_pad)
+    if bf16:
+        qt, tt = bf16_round(qt), bf16_round(tt)
     qn_p, tn_p = _padded(qn, nq_pad, 0.0), _padded(tn, nt_pad, BIG)
     kernels.launch(
         "lgr_nn_l2", qt.data_ptr(), tt.data_ptr(), qn_p.data_ptr(), tn_p.data_ptr(), Nq,
         nq_pad, nt_pad, D, per, splits, part_d2.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream(query.device).cuda_stream,
     )
-    nn_l2_cuda.launches += 1
     return d2, idx
+
+
+def nn_l2_cuda(query, train, tvalid):
+    """K7 · csrc/nn_l2.cu: same contract as nn_l2_plain, any D."""
+    out = _launch_nn(query, train, tvalid, False)
+    if query.shape[0]:
+        nn_l2_cuda.launches += 1
+    return out
 
 
 nn_l2_cuda.launches = 0
 
 
-def nn_l2(query, train, qvalid, tvalid, tile: int = 4096):
+def nn_l2_bf16_cuda(query, train, tvalid):
+    """K7 · csrc/nn_l2.cu on bfloat16-rounded copies: same contract as
+    nn_l2_plain(..., bf16=True)."""
+    out = _launch_nn(query, train, tvalid, True)
+    if query.shape[0]:
+        nn_l2_bf16_cuda.launches += 1
+    return out
+
+
+nn_l2_bf16_cuda.launches = 0
+
+
+def nn_l2(query, train, qvalid, tvalid, tile: int = 4096, bf16: bool = False):
     """Exact 1-NN of each query row against the train rows
-    (topk_l2.nn_l2_pallas).  Returns (idx i64[Nq], dist f32[Nq] euclidean,
-    mask bool[Nq]); the kernel on CUDA tensors, the plain version on CPU."""
+    (topk_l2.nn_l2_pallas; with bf16, the bf16 form of matchers.match_bf).
+    Returns (idx i64[Nq], dist f32[Nq] euclidean, mask bool[Nq]); the kernel
+    on CUDA tensors, the plain version on CPU."""
     if query.is_cuda:
-        d2, idx = nn_l2_cuda(query, train, tvalid)
+        d2, idx = (nn_l2_bf16_cuda if bf16 else nn_l2_cuda)(query, train, tvalid)
     else:
-        d2, idx = nn_l2_plain(query, train, tvalid, tile)
+        d2, idx = nn_l2_plain(query, train, tvalid, tile, bf16)
     idx = idx.long()
     mask = qvalid & (d2 < BIG / 2) & (idx < train.shape[0])
     dist = torch.where(mask, d2, BIG).clamp_min(0.0).sqrt()

@@ -147,5 +147,18 @@ def test_match_bf_k1_shapes_and_refusals(rng):
     qn = q.numpy().astype(np.float64)
     want = np.argsort(((qn[:, None, :] - qn[None, :, :]) ** 2).sum(-1), axis=1)[:, :40]
     np.testing.assert_array_equal(i40.numpy(), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match_bf(q, q, v, v, k=1, bf16=True)
+    # the bf16 matcher (norms of the float32 rows, dot products of the rows
+    # rounded to bfloat16) against the JAX package's: the same self-matches;
+    # the residual d2 is the rounding's, so both stay under 0.5 here; d2
+    # within 2e-6 of 2 |q|^2 (float32 sums in another order)
+    from lidar_global_registration_tpu.ops.matchers import match_bf as jmatch_bf
+
+    bi, bd, bm = match_bf(q, q, v, v, k=1, bf16=True)
+    ji, jd, jm = (np.asarray(a) for a in jmatch_bf(jnp.asarray(q.numpy()), jnp.asarray(q.numpy()),
+                                                  jnp.asarray(v.numpy()), jnp.asarray(v.numpy()),
+                                                  k=1, bf16=True))
+    np.testing.assert_array_equal(bi.numpy(), ji)
+    np.testing.assert_array_equal(bm.numpy(), jm)
+    assert bi[:, 0].tolist() == list(range(50)) and float(bd.max()) < 0.5
+    n2 = 2.0 * (q.numpy() ** 2).sum(1)
+    assert (np.abs(bd.numpy()[:, 0] ** 2 - jd[:, 0] ** 2) <= 2e-6 * n2).all()

@@ -273,21 +273,48 @@ def _tiny_clouds():
     (dict(descriptor_id="rops"), "Host-path ops"),
     (dict(descriptor_id="usc"), "Host-path ops"),
     (dict(descriptor_id="shot", lrf_id="gt"), "Host-path ops"),
-    (dict(guess=np.eye(4, dtype=np.float32)), "Host-path ops"),
+    # a radius that holds a few keypoints: at the default 0 the JAX package's
+    # grid of 1e-12 cells overflows into one bucket of 32 points
+    (dict(guess=np.eye(4, dtype=np.float32), match_search_radius=0.5), "Host-path ops"),
     (dict(save_features=True), "item 2"),
 ])
 def test_outside_the_envelope_raises(case, item, capsys):
     """Outside the staged envelope both packages print the reason and take
-    the host pyramid; there the settings the port has not ported yet raise,
-    each naming its ROADMAP item, before any keypoint is searched."""
+    the host pyramid.  There save_features raises in the port, naming its
+    ROADMAP item (`item`), before any keypoint is searched.  The settings
+    the port refused before this slice ported them under ROADMAP Queue 1
+    item 3 ('Host-path ops': the RoPS and USC descriptors, SHOT with
+    ground-truth frames, an initial guess) run in both packages: on a cloud
+    and its copy each finds the identity (within 1e-4 rad and 1e-4), from
+    the same correspondences, every one a row and itself."""
     src, tgt = _tiny_clouds()
     _cfg, reason = tpipe.staged_envelope(_params(ttypes, **case))
-    with pytest.raises(NotImplementedError, match=item) as e:
-        tpipe.align_point_clouds(src, tgt, _params(ttypes, **case), save_artifacts=False,
-                                 device="cpu")
-    assert reason and "ROADMAP" in str(e.value) and "Queue 1" in str(e.value)
-    assert (f"# staged TPU path unavailable ({reason}); host pyramid path used"
-            in capsys.readouterr().out)
+    line = f"# staged TPU path unavailable ({reason}); host pyramid path used"
+    if case.get("save_features"):
+        with pytest.raises(NotImplementedError, match=item) as e:
+            tpipe.align_point_clouds(src, tgt, _params(ttypes, **case), save_artifacts=False,
+                                     device="cpu")
+        assert reason and "ROADMAP" in str(e.value) and "Queue 1" in str(e.value)
+        assert line in capsys.readouterr().out
+        return
+    assert item == "Host-path ops"
+    res = tpipe.align_point_clouds(src, tgt, _params(ttypes, **case), save_artifacts=False,
+                                   device="cpu")
+    x = src.xyz.numpy()
+    jres = jpipe.align_point_clouds(jtypes.Cloud.from_numpy(x), jtypes.Cloud.from_numpy(x.copy()),
+                                    _params(jtypes, **case), save_artifacts=False)
+    assert reason and capsys.readouterr().out.count(line) == 2
+    pairs = []
+    for r in (res, jres):
+        assert r.converged
+        rerr, terr = rotation_translation_error(torch.as_tensor(np.asarray(r.transformation)),
+                                                torch.eye(4))
+        assert float(rerr) < 1e-4 and float(terr) < 1e-4, (float(rerr), float(terr))
+        v = np.asarray(r.correspondences.valid)
+        q, m = np.asarray(r.correspondences.query)[v], np.asarray(r.correspondences.match)[v]
+        assert len(q) > 20 and (q == m).all()
+        pairs.append(set(q.tolist()))
+    assert pairs[0] == pairs[1]
 
 
 def test_teaser_raises_after_the_search(capsys):
