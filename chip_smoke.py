@@ -25,7 +25,10 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       package's one-graph entry points on the 65,536-point pair
       (register_pair_step, register_pair_two_stage and register_pair_staged
       with use_cell_fpfh=False), a warm-up and three repeats each under
-      the rule; K5, K6 and K7 checked at 262,144 points, then one
+      the rule; the batched-pairs API (parallel/batch.make_register_batch)
+      at B = 4 on copies of that pair turned and shifted by known
+      transforms, each pair torch.equal to register_pair_step and under the
+      rule; K5, K6 and K7 checked at 262,144 points, then one
       262,144-point pair.  Keypoint-any SHOT (descriptor shot; bench.py with
       LGR_BENCH_DESC=shot in keypoint-any mode): the 65,536-point pair once,
       warm, K7 at D = 352 over 65,536 x 65,536 checked, a 4,096-point pair
@@ -94,7 +97,16 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       registered with an initial guess (the ground truth turned by 2 degrees
       and moved by distance_thr), GROR's own preparation followed by
       align_gror, and the hypothesis pool (the ground truth among two
-      turned poses must win).  Each result row must be converged with r_err
+      turned poses must win).  The debug side on the 1M scans, one process
+      a command: `debug` of the default SHOT and the FPFH configuration,
+      `debug` of H2 (the weights dump) traced with LGR_PROFILE (its ten
+      longest device operations printed), and one `alignment` over a
+      `keypoint`, a `compare`, a `measure` with save_features and H2 with
+      save_features: every artifact of the JAX package's names, one vertex
+      a preprocessed row, one CSV row a valid descriptor of its level (held
+      against this process's own computation of the level), sub-voxel
+      keypoints within the ISS radius, K2-K4 (and for save_features K5's
+      full pass and K7) launched and no other form.  Each result row must be converged with r_err
       < 0.05 rad and t_err and overlap_rmse < distance_thr, `metric`'s
       cached inliers within 1 % of the alignment's, `measure`'s success
       rate 1; each command's step times, peak device memory and K1-K7
@@ -1817,15 +1829,16 @@ def cli_config(d: Path, name: str, body: str, tests: str | None = None) -> str:
     return f"{name}.yaml"
 
 
-def run_cli(d: Path, command: str, config: str, label: str) -> dict:
+def run_cli(d: Path, command: str, config: str, label: str, env_extra=None) -> dict:
     """`python -m lidar_global_registration_tpu_torch <command> <config>` in
-    d, as a user runs it.  Its whole output goes to d/<label>.log; its step
-    lines are echoed.  A non-zero exit fails the phase.  Returns the
-    command's seconds, its kernel launches and the preprocessed densities it
-    printed."""
+    d, as a user runs it (with env_extra added to its environment).  Its
+    whole output goes to d/<label>.log; its step lines are echoed.  A
+    non-zero exit fails the phase.  Returns the command's seconds, its
+    kernel launches, the preprocessed densities and rows it printed and its
+    standard output."""
     import os
 
-    env = dict(os.environ)
+    env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "lidar_global_registration_tpu_torch", command,
@@ -1836,7 +1849,7 @@ def run_cli(d: Path, command: str, config: str, label: str) -> dict:
     if proc.returncode != 0:
         log(proc.stdout[-3000:] + proc.stderr[-3000:])
         raise AssertionError(f"CLI {label}: exit code {proc.returncode}")
-    launches, densities = {}, []
+    launches, densities, rows = {}, [], []
     for line in proc.stdout.splitlines():
         if line.startswith("# "):
             log(f"#   {label}: {line[2:]}")
@@ -1846,8 +1859,9 @@ def run_cli(d: Path, command: str, config: str, label: str) -> dict:
         m = re.match(r"# load .* density [\d.]+ s \(([\d.e+-]+)\)$", line)
         if m:
             densities.append(float(m.group(1)))
+            rows.append(int(re.search(r"downsample [\d.]+ s \((\d+) rows\)", line).group(1)))
     log(f"#   {label}: {dt:.2f} s command")
-    return dict(seconds=dt, launches=launches, densities=densities)
+    return dict(seconds=dt, launches=launches, densities=densities, rows=rows, out=proc.stdout)
 
 
 def cli_results(d: Path, n_rows: int) -> list[dict]:
@@ -2241,6 +2255,253 @@ def one_graph_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
     return out
 
 
+def batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
+    """The batched-pairs API (parallel/batch.make_register_batch) at B = 4 on
+    the bench's 65,536-point keypoint-any pair with one_graph_phase's
+    settings: four copies of the pair, the target of each turned about z and
+    shifted by its own known transform M_b (so its ground truth is M_b
+    T_gt), seeds SEED + b, after a warm-up of one pair.  Every counter is
+    set to 0 before the batch and read after it: K5's full pass and K7 must
+    rise, every other form stay at 0.  Each pair's (T, inliers,
+    n_correspondences) must be torch.equal to register_pair_step's on the
+    same pair and seed, and each pair must meet the bench's rule
+    (bench.py:327; `converged` from the step).  Returns the batch's
+    launches and its seconds a pair beside the step's."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models import flagship as fl
+    from lidar_global_registration_tpu_torch.parallel.batch import make_register_batch
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    cfg = fl.FlagshipConfig(rounds=8, hypothesis_batch=1024, use_iss=False, match_tile=4096,
+                            metric="correspondences")
+    turns = [(0.0, [0.0, 0.0, 0.0]), (30.0, [5.0, -3.0, 1.0]), (-45.0, [-8.0, 2.0, 0.5]),
+             (90.0, [0.0, 10.0, -2.0])]
+    Ms = [_turn_z(np.eye(4), deg, shift).astype(np.float64) for deg, shift in turns]
+    n = a.shape[0]
+    src = torch.from_numpy(np.stack([a] * 4)).to(dev)
+    tgt = torch.from_numpy(np.stack([(b @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
+                                     for M in Ms])).to(dev)
+    valid = torch.ones((4, n), dtype=torch.bool, device=dev)
+    scalars = torch.tensor([[radii[k] for k in RADII_KEYS]] * 4, dtype=torch.float32,
+                           device=dev)
+    vps = torch.from_numpy(np.stack([
+        np.stack([vp_a, (M[:3, :3] @ vp_b + M[:3, 3]).astype(np.float32)]) for M in Ms])).to(dev)
+    seeds = [SEED + i for i in range(4)]
+    step = make_register_batch(cfg)
+    step(src[:1], valid[:1], tgt[:1], valid[:1], seeds[:1], scalars[:1], vps[:1])  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    T, inl, nc = step(src, valid, tgt, valid, seeds, scalars, vps)
+    T.cpu()
+    batch_s = (time.perf_counter() - t0) / 4
+    got = read_counters()
+    check_counts("batch", got, ("spfh_cuda", "nn_l2_cuda"))
+    step_s = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        o = fl.register_pair_step(src[i], valid[i], tgt[i], valid[i],
+                                  torch.Generator(device=dev).manual_seed(seeds[i]),
+                                  *scalars[i].tolist(), vp_src=vps[i, 0], vp_tgt=vps[i, 1],
+                                  cfg=cfg)
+        o["transformation"].cpu()
+        step_s.append(time.perf_counter() - t0)
+        same = (torch.equal(T[i], o["transformation"]) and torch.equal(inl[i], o["inliers"])
+                and torch.equal(nc[i], o["n_correspondences"]))
+        r_err, t_err, finite = pose_error({"transformation": T[i]}, (Ms[i] @ T_gt).astype(
+            np.float32))
+        conv = bool(o["converged"])
+        ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
+        log(f"# batch pair {i} (turn {turns[i][0]:g} deg): converged={conv} r_err={r_err:.5f} "
+            f"t_err={t_err:.4f} inliers={int(inl[i])} corr={float(nc[i]):.0f} "
+            f"equal to the step: {same}; step {step_s[-1]:.4f} s")
+        assert same, f"batch pair {i}: not torch.equal to register_pair_step"
+        assert ok, f"batch pair {i} failed the bench's success rule"
+    log(f"# batch B=4 n={n}: {batch_s:.4f} s a pair (register_pair_step "
+        f"{np.mean(step_s):.4f} s a pair); launches {got}")
+    return dict(launches=got, seconds_per_pair=batch_s,
+                step_seconds_per_pair=float(np.mean(step_s)))
+
+
+# the debug side of the command line on the 1M scans: the artifacts each
+# command writes, by name (those of the JAX package's debug surface); the
+# histogram PNGs are written where matplotlib is installed, else skipped
+# with one printed line each
+MAPS = [f"temperature_{k}_{s}" for k in ("dists", "normal_diffs") for s in ("src", "tgt")]
+DISTS = [f"temperature_distances_{s}" for s in ("src", "tgt")]
+DEBUG_STEMS = ["downsampled_src", "downsampled_tgt", "iss_saliency_src", "iss_saliency_tgt"] + (
+    MAPS + DISTS)
+ISS_FORMS = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda")
+FPFH_CLI = "descriptor: fpfh\nkeypoint: iss\nmatching: cluster\nmetric: uniformity\n"
+
+
+def _written(d: Path, before: dict) -> dict:
+    """The files of d/data/debug/scanA_scanB new or rewritten since the
+    `before` snapshot ({path: mtime}), by stem (the artifact's name between
+    the test name and the settings)."""
+    out = {}
+    for p, t in _snapshot(d).items():
+        if before.get(p) != t:
+            out.setdefault(p.name.removeprefix("scanA_scanB_").split("_352_")[0], []).append(p)
+    return out
+
+
+def _snapshot(d: Path) -> dict:
+    return {p: p.stat().st_mtime_ns for p in (d / "data/debug/scanA_scanB").iterdir()}
+
+
+def _vertices(path: Path) -> int:
+    from lidar_global_registration_tpu_torch.utils.io import read_ply
+
+    fields = read_ply(str(path))[0]
+    assert all(np.isfinite(fields[k]).all() for k in ("x", "y", "z")), path
+    return len(fields["x"])
+
+
+def _check_artifacts(label: str, new: dict, run: dict, stems, each: int, n_hist: int) -> None:
+    """Every stem written `each` times; every cloud PLY of a side (..._src /
+    _tgt, not the sub-voxel keypoints) with one vertex per preprocessed row
+    of that side, as the command's `# load` lines printed; n_hist histogram
+    PNGs written or their skips printed."""
+    missing = [st for st in stems if len(new.get(st, [])) != each]
+    assert not missing, f"{label}: artifacts missing or extra: {missing} of {sorted(new)}"
+    rows = dict(zip(("src", "tgt"), run["rows"]))
+    for st in stems:
+        side = st.rsplit("_", 1)[-1]
+        for p in new[st]:
+            if p.suffix == ".ply" and side in rows and not st.startswith("subvoxel"):
+                assert _vertices(p) == rows[side], f"{label}: {p.name} rows"
+    n_png = sum(len(v) for st, v in new.items() if "histogram_" in st)
+    n_skip = run["out"].count("no matplotlib, histogram PNG skipped")
+    assert n_png + n_skip == n_hist, (label, n_png, n_skip)
+    log(f"#   {label}: {sum(len(v) for v in new.values())} artifacts, {n_png} PNGs, "
+        f"{n_skip} skipped; rows {run['rows']}")
+
+
+def trace_summary(trace_dir: Path, category: str = "kernel") -> None:
+    """The one Chrome trace LGR_PROFILE wrote into trace_dir: it must hold
+    device operations (events of `category`); prints their count, summed
+    time and the ten longest, then deletes the trace."""
+    (trace,) = trace_dir.glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    ops = sorted((e for e in events if e.get("cat") == category), key=lambda e: -e["dur"])
+    assert ops, "LGR_PROFILE: the trace holds no device operation"
+    busy = sum(e["dur"] for e in ops) / 1e6
+    log(f"#   LGR_PROFILE trace {trace.name}: {trace.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(ops)} device operations, {busy:.3f} s busy; the ten longest:")
+    for e in ops[:10]:
+        log(f"#     {e['dur'] / 1e3:9.3f} ms  {e['name'][:110]}")
+    trace.unlink()
+
+
+def debug_phase(d: Path, fr: float):
+    """The debug side of the port's command line on the 1M scans, after the
+    `alignment` runs whose caches it reads, each command its own process:
+    `debug` over both.yaml (the default SHOT and the FPFH configuration),
+    `debug` over H2 (FPFH, lr, the weighted closest-plane metric, RANSAC
+    and GROR: the weights dump) with LGR_PROFILE set (the trace must be
+    written; its ten longest device operations are printed), and one
+    `alignment` over a `tests:` list of a `keypoint` and a `compare` entry
+    on the FPFH configuration, a `measure` entry of it with save_features
+    (n_times 1) and a `test` entry of H2 (RANSAC) with save_features.  Each
+    artifact of the JAX package's names must be written, each PLY of a side
+    with one vertex per preprocessed row of it; the keypoint entry must
+    print a positive count a side and refine its sub-voxel keypoints to
+    finite points within the ISS radius, compare must print both
+    hypotheses, the results held to the success rules.  K2-K4 must rise in
+    each process, and in the debug processes every other form stay at 0;
+    the tests list must also raise K5's full pass and K7 (save_features
+    sends its rows to the host path) and leave the rest at 0.  Returns
+    ({label: launches}, the histograms CSVs the tests list wrote)."""
+    fpfh = FPFH_CLI + f"feature_radius: {fr!r}\n"
+    h2 = HOST_H2 + f"feature_radius: {fr!r}\n"
+    launches, seconds = {}, {}
+
+    before = _snapshot(d)
+    run = run_cli(d, "debug", "both.yaml", "debug_1m")
+    _check_artifacts("debug_1m", _written(d, before), run, DEBUG_STEMS, 2, 4)
+    assert run["out"].count("debug artifacts written") == 2
+    check_counts("debug_1m", run["launches"], ISS_FORMS)
+    launches["cli_debug_1m"], seconds["debug_1m"] = run["launches"], run["seconds"]
+
+    trace_dir = d / "trace"
+    before = _snapshot(d)
+    run = run_cli(d, "debug", cli_config(d, "h2_debug", h2 + "alignment: [ransac, gror]\n"),
+                  "debug_h2_1m", env_extra={"LGR_PROFILE": str(trace_dir)})
+    _check_artifacts("debug_h2_1m", _written(d, before), run, DEBUG_STEMS + ["weights"], 2, 4)
+    check_counts("debug_h2_1m", run["launches"], ISS_FORMS)
+    launches["cli_debug_h2_1m"], seconds["debug_h2_1m"] = run["launches"], run["seconds"]
+    trace_summary(trace_dir)
+
+    body = "".join(
+        f"    - {kind}:\n" + "".join(f"        {ln}\n"
+                                    for ln in (CLI_SCENE + cfg).strip().splitlines())
+        for kind, cfg in (("keypoint", fpfh), ("compare", fpfh),
+                          ("measure", fpfh + "save_features: true\nn_times: 1\n"),
+                          ("test", h2 + "save_features: true\n")))
+    (d / "debug_tests.yaml").write_text("tests:\n" + body)
+    before = _snapshot(d)
+    run = run_cli(d, "alignment", "debug_tests.yaml", "debug_tests_1m")
+    new = _written(d, before)
+    gt_maps = [st.replace("temperature_", "temperature_gt_") for st in MAPS + DISTS]
+    _check_artifacts("debug_tests_1m", new, run, [
+        "downsampled_src", "downsampled_tgt", "subvoxel_kps_src", "subvoxel_kps_tgt"]
+        + MAPS + DISTS + gt_maps + ["ids"], 1, 4)
+    assert len(new.get("histograms_src", [])) == len(new.get("histograms_tgt", [])) == 2, new
+    out = run["out"]
+    m = re.search(r"(\d+) src / (\d+) tgt keypoints", out)
+    assert m and int(m.group(1)) > 0 and int(m.group(2)) > 0, "keypoint: no keypoints"
+    for side in ("src", "tgt"):
+        m = re.search(rf"# keypoint subvoxel {side}: (\d+) keypoints, (\d+) refined, largest "
+                      rf"shift ([\d.e+-]+) \(iss radius ([\d.e+-]+)\)", out)
+        assert m and int(m.group(1)) > 0 and float(m.group(3)) < float(m.group(4)), side
+        (ply,) = new[f"subvoxel_kps_{side}"]
+        assert _vertices(ply) == int(m.group(1)), ply.name
+    for label in ("incorrect", "correct"):
+        assert re.search(rf"\t{label} hypothesis: \d+ points, [\d.e+-]+ weighted points",
+                         out), label
+    cli_measure(d)
+    cli_results(d, 1)
+    check_counts("debug_tests_1m", run["launches"], ISS_FORMS + ("spfh_cuda", "nn_l2_cuda"))
+    launches["cli_debug_tests_1m"], seconds["debug_tests_1m"] = run["launches"], run["seconds"]
+    log(f"# debug phase: {seconds}")
+    return launches, {k: new[k] for k in ("histograms_src", "histograms_tgt")}
+
+
+def save_features_check(d: Path, fr: float, loaded, written: dict) -> None:
+    """Each histograms*_src / _tgt.csv the debug phase's save_features rows
+    wrote holds one row per valid descriptor of its level, with the
+    keypoint's index, as this process computes the level on the same loaded
+    pair (host ISS, then the level surface and FPFH: initialize_side)."""
+    from lidar_global_registration_tpu_torch.models import pipeline as tp
+    from lidar_global_registration_tpu_torch.models.pyramid import initialize_side
+    from lidar_global_registration_tpu_torch.ops.iss import detect_keypoints
+    from lidar_global_registration_tpu_torch.utils.config import Config
+    from lidar_global_registration_tpu_torch.utils.naming import construct_path
+
+    src, tgt, ds, dt, na, vps, vpt = loaded
+    with contextlib.chdir(d):
+        for name, body in (("sf_fpfh", FPFH_CLI), ("sf_h2", HOST_H2)):
+            (params,) = tp.parameters_from_config(Config.load(cli_config(
+                d, name, body + f"feature_radius: {fr!r}\n")), ds, dt, na, vps, vpt)
+            params = params.replace(testname="scanA_scanB")
+            for cloud, vp, r, side in ((src, vps, params.iss_radius_src, "src"),
+                                       (tgt, vpt, params.iss_radius_tgt, "tgt")):
+                path = Path(construct_path(params, f"histograms_{side}", "csv")).resolve()
+                assert path in [p.resolve() for p in written[f"histograms_{side}"]], path
+                idx = detect_keypoints(cloud, params.keypoint_id, r)
+                lvl = initialize_side(cloud, idx, params, vp, r, side == "src")
+                rows = lvl.level_kp_rows[0]
+                ok = lvl.level_feat_valid[0][:rows.shape[0]]
+                want = rows[ok].cpu().numpy()
+                got = np.loadtxt(path, delimiter=",", ndmin=2)
+                log(f"#   save_features {name} {side}: {len(got)} rows of {rows.shape[0]} "
+                    f"keypoints ({len(want)} valid descriptors)")
+                assert got.shape == (len(want), 34), (path.name, got.shape, len(want))
+                assert np.array_equal(got[:, 0].astype(np.int64), want), path.name
+
+
 def cli_phase(dev):
     """The port's command line on the graded bench pair, as a user runs it
     (`python -m lidar_global_registration_tpu_torch`, one process a
@@ -2249,8 +2510,9 @@ def cli_phase(dev):
     (SHOT, the AUTO radius: the staged pyramid) and with FPFH at the fixed
     feature radius that the printed density gives (the feature-scale
     route), `metric` on both caches, and a `measure` test of the FPFH
-    setting, n_times 3, then the host path (host_run: H1 and H2 in one
-    process) and its kernels at their shapes (host_captures, host_records);
+    setting, n_times 3, then the host path (host_run: H1-H6 in one
+    process), the debug side (debug_phase, save_features_check) and the
+    host path's kernels at their shapes (host_captures, host_records);
     at 10,485,760 points `alignment` with FPFH and the AUTO radius.  Every
     result row is held to the success rules, `metric`'s cached inliers to
     the alignment's, `measure` to a success rate of 1.  The scans are
@@ -2264,7 +2526,6 @@ def cli_phase(dev):
     from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
 
     launches, host, extras = {}, [], {}
-    fpfh = "descriptor: fpfh\nkeypoint: iss\nmatching: cluster\nmetric: uniformity\n"
     need = {"shot": [w for k, w in CLI_WRAPPERS if k not in ("spfh", "combine")],
             "fpfh": [w for _k, w in CLI_WRAPPERS]}
     for n, tag in ((N_PYR, "1m"), (N_ISS, "10m")):
@@ -2281,7 +2542,7 @@ def cli_phase(dev):
                 dmax = max(runs[-1][1]["densities"])
                 fr = float(np.sqrt(FEATURE_NR_POINTS * dmax * dmax / np.pi))
                 log(f"#   feature radius {fr:.6g} from the printed density {dmax:.6g}")
-                body = fpfh + f"feature_radius: {fr!r}\n"
+                body = FPFH_CLI + f"feature_radius: {fr!r}\n"
                 runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh", body),
                                              "alignment_fpfh_1m")))
                 rows = cli_results(d, 2)
@@ -2296,7 +2557,10 @@ def cli_phase(dev):
                                                         tests="measure"), "measure_1m")))
                 cli_measure(d)
                 launches["cli_host_1m"] = host_run(d, fr)["launches"]
+                debug_launches, written = debug_phase(d, fr)
+                launches.update(debug_launches)
                 got, r_iss, loaded = host_captures(d, fr, dev)
+                save_features_check(d, fr, loaded, written)
                 host = host_records(got, r_iss)
                 del got
                 extras, got, r_gror = host_extras(d, fr, dev, loaded)
@@ -2304,11 +2568,11 @@ def cli_phase(dev):
                 host += gror_records(got, r_gror)
                 del got
             else:
-                runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh_auto", fpfh),
+                runs.append(("fpfh", run_cli(d, "alignment", cli_config(d, "fpfh_auto", FPFH_CLI),
                                              "alignment_fpfh_10m")))
                 cli_results(d, 1)
-        finally:
-            for f in d.glob("*.ply"):
+        finally:  # the scans, the debug clouds and the point ids: too large to keep
+            for f in [*d.rglob("*.ply"), *d.rglob("*_ids_*.csv")]:
                 f.unlink()
         for kind, run in runs:
             label = f"cli_{kind}_{tag}" + ("_measure" if f"cli_{kind}_{tag}" in launches else "")
@@ -2546,6 +2810,8 @@ def main() -> int:
     one_graph = {f"one_graph_{k}": v
                  for k, v in one_graph_phase(dev, a, b, vp_a, vp_b, T_gt, radii).items()}
     elapsed("one-graph entry points")
+    one_graph["batch"] = batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii)
+    elapsed("batched pairs")
 
     # keypoint-any SHOT on the same 65,536-point pair
     records.append(any_shot_phase(dev, a, b, vp_a, vp_b, T_gt, radii))

@@ -35,8 +35,8 @@ level work runs on the clouds' device, and the strategies read the vote's
 winners once to the host, as in the JAX package.  The staged pyramid,
 where register_pair_staged takes the AUTO radius, is
 models/flagship._pyramid_route; it shares _cluster_distances and
-_consensus_vote.  Not ported yet, raising NotImplementedError that names
-its ROADMAP.md item: save_features.
+_consensus_vote.  With save_features each level's descriptors are written
+as histograms[<log2 radius>]_src/_tgt.csv (utils/debug_viz.save_features_csv).
 """
 from __future__ import annotations
 
@@ -71,15 +71,10 @@ from lidar_global_registration_tpu_torch.types import (
     Correspondences,
     round_up,
 )
+from lidar_global_registration_tpu_torch.utils.debug_viz import save_features_csv
+from lidar_global_registration_tpu_torch.utils.naming import construct_path
 
 BIG = 3.0e38
-
-
-def _refuse_unported(params: AlignmentParameters) -> None:
-    """NotImplementedError for the setting of the host path not ported yet."""
-    if params.save_features:
-        raise NotImplementedError("save_features (the descriptor dump) is not ported yet: see "
-                                  "ROADMAP.md, Queue 1, item 2 (the debug side of the CLI)")
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +242,12 @@ def initialize_side(cloud: Cloud, kp_indices: torch.Tensor, params: AlignmentPar
                                              normals_available=True)
         feats, fvalid = compute_descriptors(params, level_kps, surface, search_radius)
         side.time_fe += clock()
+        if params.save_features:
+            # the level's descriptors (saveFeatures, feature_analysis.h:11-27;
+            # called from matching.h:273-279)
+            scale = "" if params.feature_radius is not None else str(side.min_log2 + i)
+            save_features_csv(feats, fvalid, rows, construct_path(
+                params, f"histograms{scale}_{'src' if is_source else 'tgt'}", "csv"))
         side.level_kps.append(level_kps)
         side.level_surfaces.append(surface)
         side.level_features.append(feats)
@@ -424,7 +425,6 @@ def feature_based_correspondence_search(src: Cloud, tgt: Cloud, params: Alignmen
     sides' level ranges and buckets and the vote's winners."""
     from lidar_global_registration_tpu_torch.ops.iss import detect_keypoints
 
-    _refuse_unported(params)
     idx_src = detect_keypoints(src, params.keypoint_id, params.iss_radius_src)
     idx_tgt = detect_keypoints(tgt, params.keypoint_id, params.iss_radius_tgt)
     side_src = initialize_side(src, idx_src, params, params.vp_src, params.iss_radius_src,

@@ -39,3 +39,24 @@ def detect_keypoints(cloud: Cloud, keypoint_id: str, iss_radius: float) -> torch
     if keypoint_id == KEYPOINT_ISS:
         keep = iss_keypoints(cloud, iss_radius)[0] & keep
     return torch.nonzero(keep).squeeze(1)
+
+
+def subvoxel_iss_keypoints(cloud: Cloud, iss_radius: float, max_keypoints: int = 10):
+    """ISS keypoints refined to sub-voxel positions by the quadric fit of
+    their saliencies (iss.subvoxel_iss_keypoints; iss_debug.cpp:171-219 +
+    quadric.cpp): the first max_keypoints sorted keypoints, each with its 6
+    nearest points of the cloud (itself included; exact, ops/grid.knn) and
+    the PCA normal of those 6.  Returns (refined f32[n, 3], rows i64[n],
+    ok bool[n]) on the cloud's device."""
+    from lidar_global_registration_tpu_torch.ops.grid import knn
+    from lidar_global_registration_tpu_torch.ops.normals import normals_from_neighbors
+    from lidar_global_registration_tpu_torch.ops.quadric import subvoxel_keypoints
+
+    is_kp, saliency = iss_keypoints(cloud, iss_radius)
+    rows = torch.nonzero(is_kp & cloud.valid).squeeze(1)[:max_keypoints]
+    kp_xyz = cloud.xyz[rows]
+    nidx, _dist, nmask = knn(cloud.xyz, cloud.valid, 6, queries=kp_xyz)
+    normal, _c, _ok = normals_from_neighbors(kp_xyz, cloud.xyz, nidx, nmask)
+    refined, ok = subvoxel_keypoints(kp_xyz, normal, cloud.xyz[nidx], saliency[nidx], nmask,
+                                     iss_radius)
+    return refined, rows, ok

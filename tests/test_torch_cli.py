@@ -1,8 +1,8 @@
 """The PyTorch port's command surface against the JAX package's:
-`cli.main(["alignment" | "metric", config.yaml])` on one synthetic PLY pair
-in two working directories, the `measure` test type, the commands that are
-not ported yet, and the device rule (the card unless the caller names
-another device).
+`cli.main(["alignment" | "metric" | "debug", config.yaml])` on one
+synthetic PLY pair in two working directories, the `measure`, `compare` and
+`keypoint` test types, the LGR_PROFILE trace, and the device rule (the card
+unless the caller names another device).
 
 The pair is the bump terrain of tests/test_cli_e2e.py (copied, with each
 scan sampled on an axis-aligned square of its own frame and bumps of at
@@ -17,6 +17,8 @@ import contextlib
 import io
 import os
 import re
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -217,21 +219,139 @@ def test_measure_through_the_port(tmp_path, monkeypatch):
     assert f"# measure: success rate {round(2 * float(row[1]))}/2" in log.getvalue()
 
 
+def _new_files(d: Path, before: set) -> list[str]:
+    """The files written under d/data/debug since `before`, by name with
+    the ISS radii blanked."""
+    now = {p for p in (d / "data/debug").rglob("*") if p.is_file()}
+    return sorted(_without_radii(p.name) for p in now - before)
+
+
+def _tests_entry(d: Path, entry: str, body: str = CONFIG) -> list[str]:
+    lines = "".join(f"        {ln}\n" for ln in body.strip().splitlines())
+    (d / "c.yaml").write_text(f"tests:\n    - {entry}:\n" + lines)
+    return ["alignment", "c.yaml"]
+
+
+EXPECTED = {  # the artifacts of each entry, by name (tests/test_cli_e2e.py's command surface)
+    "debug": ["downsampled_src", "downsampled_tgt"] + [
+        f"temperature_{k}_{s}" for k in ("dists", "distances", "histogram", "normal_diffs")
+        for s in ("src", "tgt")],
+    "compare": [f"temperature{g}_{k}_{s}" for g in ("", "_gt")
+                for k in ("dists", "distances", "histogram", "normal_diffs")
+                for s in ("src", "tgt")],
+    "keypoint": ["downsampled_src", "downsampled_tgt", "subvoxel_kps_src", "subvoxel_kps_tgt"],
+}
+
+
 @pytest.mark.parametrize("entry", ["debug", "compare", "keypoint"])
-def test_unported_commands_raise(tmp_path, monkeypatch, entry):
-    """`debug` and the `compare` / `keypoint` test types need the sub-voxel
-    ISS keypoints and the debug PLYs: NotImplementedError naming the
-    ROADMAP item, before any scan is read."""
-    monkeypatch.chdir(tmp_path)
+def test_unported_commands_raise(runs, tmp_path, entry):
+    """(Named when the port refused these.)  `debug` and the `compare` /
+    `keypoint` test types run through each package on a copy of its own
+    `alignment` directory (its own caches: the ISS radii in the names
+    differ in the sixth decimal): the same artifact names, which are those
+    the JAX package's command surface writes, the same printed counts
+    (keypoint: every preprocessed row a keypoint, keypoint any), and the
+    compare lines for both hypotheses."""
+    new, logs = {}, {}
+    for name, main, kw in (("jax", jcli.main, {}), ("port", tcli.main, {"device": "cpu"})):
+        d = tmp_path / name
+        shutil.copytree(runs[name]["dir"], d)
+        before = {p for p in (d / "data/debug").rglob("*") if p.is_file()}
+        argv = ["debug", "config.yaml"] if entry == "debug" else _tests_entry(d, entry)
+        log = io.StringIO()
+        with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log):
+            mp.chdir(d)
+            main(argv, **kw)
+        new[name], logs[name] = _new_files(d, before), log.getvalue()
+    assert new["port"] == new["jax"]
+    stems = sorted(n.split("_352_")[0].removeprefix("scanA_scanB_") for n in new["port"])
+    assert stems == sorted(EXPECTED[entry])
     if entry == "debug":
-        (tmp_path / "c.yaml").write_text(CONFIG)
-        argv = ["debug", "c.yaml"]
+        assert "debug artifacts written" in logs["port"]
+    elif entry == "compare":
+        for label in ("incorrect", "correct"):
+            got = [re.search(rf"\t{label} hypothesis: (\d+) points, ([\d.e+-]+) weighted", logs[k])
+                   for k in ("jax", "port")]
+            assert all(got), label
+            (nj, _wj), (nt, wt) = (g.groups() for g in got)
+            assert int(nt) > 1000 and float(wt) > 0
+            assert abs(int(nt) - int(nj)) <= 0.01 * int(nj), label
     else:
-        body = "".join(f"        {ln}\n" for ln in CONFIG.strip().splitlines())
-        (tmp_path / "c.yaml").write_text(f"tests:\n    - {entry}:\n" + body)
-        argv = ["alignment", "c.yaml"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1, item 2"):
-        tcli.main(argv, device="cpu")
+        counts = [re.search(r"(\d+) src / (\d+) tgt keypoints", logs[k]).groups()
+                  for k in ("jax", "port")]
+        assert counts[0] == counts[1] == ("1748", "1782")
+        assert logs["port"].count("# keypoint subvoxel") == 2
+
+
+def test_debug_iss_saliency_and_weights(tmp_path):
+    """`debug` of an ISS, weighted closest-plane configuration (the host
+    path) after the port's `alignment`: the ISS saliency and weights dumps
+    beside the other artifacts, under the names the JAX package's `debug`
+    gives them on the same caches (re-keyed to its names, whose ISS radii
+    differ in the sixth decimal), one vertex a preprocessed row; the
+    saliency colours within one level of JAX's on at most 10 rows a side
+    (measured: 2 of ~1,750 a side; the saliencies differ in the last float32
+    bits, JAX's XLA sums against K3's plain version, and sit on a bin
+    edge of the ramp)."""
+    import numpy as np
+
+    from lidar_global_registration_tpu.utils import naming as jnaming
+    from lidar_global_registration_tpu.utils.config import Config as JConfig
+    from lidar_global_registration_tpu_torch.utils.io import read_ply
+
+    body = CONFIG.replace("keypoint: any", "keypoint: iss").replace(
+        "metric: correspondences", "metric: weighted_closest_plane\nweight: exp_curvature")
+    d = tmp_path / "port"
+    d.mkdir()
+    make_scan_pair(str(d))
+    (d / "config.yaml").write_text(body)
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()):
+        mp.chdir(d)
+        tcli.main(["alignment", "config.yaml"], device="cpu")
+        shutil.copytree(d, tmp_path / "jax")
+        before = {p for p in (d / "data/debug").rglob("*") if p.is_file()}
+        tcli.main(["debug", "config.yaml"], device="cpu")
+        port = _new_files(d, before)
+        # the port's caches under the JAX package's names
+        jd = tmp_path / "jax"
+        mp.chdir(jd)
+        (params,) = jcli._load_common(JConfig.load("config.yaml"))[4]
+        (cache,) = (jd / "data/debug/scanA_scanB").glob("*correspondences*.csv")
+        shutil.copy(cache, jnaming.construct_path(params, "correspondences", "csv", True, False,
+                                                  False))
+        tf = jd / "data/debug/transformations.csv"
+        row = tf.read_text().strip().splitlines()[-1].split(",")
+        with open(tf, "a") as f:
+            f.write(",".join([jnaming.construct_name(params, "transformation")] + row[1:]) + "\n")
+        before = {p for p in (jd / "data/debug").rglob("*") if p.is_file()}
+        jcli.main(["debug", "config.yaml"])
+    assert port == _new_files(jd, before)
+    stems = sorted(n.split("_352_")[0].removeprefix("scanA_scanB_") for n in port)
+    assert stems == sorted(EXPECTED["debug"] + ["iss_saliency_src", "iss_saliency_tgt",
+                                                "weights"])
+    for side, rows in (("src", 1748), ("tgt", 1782)):
+        (tp,), (jp,) = ((x / "data/debug/scanA_scanB").glob(f"*iss_saliency_{side}_*.ply")
+                        for x in (d, jd))
+        t, j = read_ply(str(tp))[0], read_ply(str(jp))[0]
+        assert len(t["x"]) == len(j["x"]) == rows
+        diff = np.stack([t[c].astype(int) - j[c].astype(int) for c in ("red", "green", "blue")])
+        assert np.abs(diff).max() <= 1 and (diff != 0).any(0).sum() <= 10
+
+
+def test_profile_hook_writes_a_trace(runs, tmp_path, monkeypatch, capsys):
+    """LGR_PROFILE=<dir> traces the whole command with torch.profiler (CPU
+    activity on the CPU) and writes a Chrome trace there."""
+    import json
+
+    d = tmp_path / "port"
+    shutil.copytree(runs["port"]["dir"], d)
+    monkeypatch.setenv("LGR_PROFILE", str(tmp_path / "trace"))
+    monkeypatch.chdir(d)
+    tcli.main(["metric", "config.yaml"], device="cpu")
+    (trace,) = (tmp_path / "trace").glob("trace_*.json")
+    assert f"[profiler] trace written to {trace}" in capsys.readouterr().out
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"aten::sort", "aten::index"} <= names
 
 
 def test_unknown_test_type_and_bad_syntax(tmp_path, monkeypatch, capsys):
