@@ -111,6 +111,17 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       cached inliers within 1 % of the alignment's, `measure`'s success
       rate 1; each command's step times, peak device memory and K1-K7
       launches are printed.
+  The ('dp', 'tp') mesh (parallel/mesh.py, parallel/batch.py): K2-K4's
+      slot-list forms at each half of the 1M scan's host ISS plan and of the
+      64k pair's, each equal to the full pass's rows and held against its
+      plain version; then the batched pairs through
+      make_register_batch(make_mesh(2, tp=2)), two ranks on this card over
+      gloo (processes of this script, `--mesh-rank`), and through
+      make_register_batch(make_mesh(1, tp=1)) on NCCL at world size 1, with
+      ISS + FPFH + cluster matching and with keypoint-any FPFH: every pair
+      torch.equal to register_pair_step and under the rule, each rank's
+      counters risen for K2-K4 and K5 at its shard's rows and K7, and no
+      other form; the seconds a pair of both beside the one-process loop.
 
 Every timed repeat of the FPFH, SHOT and keypoint-any rows is held to the
 bench's success rule (converged, rotation error < 0.05 rad, translation
@@ -1719,12 +1730,15 @@ WRAPPER_OF = {
     **{k + "_host": k + "_cuda" for k in ("iss_count", "iss_saliency", "iss_nms")},
     "iss_count_r5": "iss_count_cuda",
     "spfh_host": "spfh_cuda",
+    **{f"iss_{k}_at_{s}": f"iss_{k}_at_cuda" for k in ("count", "saliency", "nms")
+       for s in ("1m", "64k")},
 }
 # every kernel wrapper of the port (each its own launch counter), as the
 # CLI's `# device` line lists them
 WRAPPERS = ("surface_cuda", "surface_at_cuda", "iss_count_cuda", "iss_saliency_cuda",
-            "iss_nms_cuda", "spfh_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda",
-            "nn_l2_cuda", "nn_l2_bf16_cuda")
+            "iss_nms_cuda", "iss_count_at_cuda", "iss_saliency_at_cuda", "iss_nms_at_cuda",
+            "spfh_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda", "nn_l2_cuda",
+            "nn_l2_bf16_cuda")
 
 
 def _wrapper(name: str):
@@ -2255,6 +2269,32 @@ def one_graph_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
     return out
 
 
+TURNS = [(0.0, [0.0, 0.0, 0.0]), (30.0, [5.0, -3.0, 1.0]), (-45.0, [-8.0, 2.0, 0.5]),
+         (90.0, [0.0, 10.0, -2.0])]
+
+
+def batch_pairs(dev, a, b, vp_a, vp_b, radii):
+    """The batch of four pairs on `dev`: copies of the pair (a, b), the
+    target of each turned about z and shifted by its own known transform
+    M_b of TURNS (so its ground truth is M_b T_gt), seeds SEED + b.  Returns
+    (src, valid, tgt, scalars, vps, seeds, Ms)."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.types import SEED
+
+    Ms = [_turn_z(np.eye(4), deg, shift).astype(np.float64) for deg, shift in TURNS]
+    n = a.shape[0]
+    src = torch.from_numpy(np.stack([a] * 4)).to(dev)
+    tgt = torch.from_numpy(np.stack([(b @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
+                                     for M in Ms])).to(dev)
+    valid = torch.ones((4, n), dtype=torch.bool, device=dev)
+    scalars = torch.tensor([[radii[k] for k in RADII_KEYS]] * 4, dtype=torch.float32,
+                           device=dev)
+    vps = torch.from_numpy(np.stack([
+        np.stack([vp_a, (M[:3, :3] @ vp_b + M[:3, 3]).astype(np.float32)]) for M in Ms])).to(dev)
+    return src, valid, tgt, scalars, vps, [SEED + i for i in range(4)], Ms
+
+
 def batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
     """The batched-pairs API (parallel/batch.make_register_batch) at B = 4 on
     the bench's 65,536-point keypoint-any pair with one_graph_phase's
@@ -2271,24 +2311,12 @@ def batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
 
     from lidar_global_registration_tpu_torch.models import flagship as fl
     from lidar_global_registration_tpu_torch.parallel.batch import make_register_batch
-    from lidar_global_registration_tpu_torch.types import SEED
 
     cfg = fl.FlagshipConfig(rounds=8, hypothesis_batch=1024, use_iss=False, match_tile=4096,
                             metric="correspondences")
-    turns = [(0.0, [0.0, 0.0, 0.0]), (30.0, [5.0, -3.0, 1.0]), (-45.0, [-8.0, 2.0, 0.5]),
-             (90.0, [0.0, 10.0, -2.0])]
-    Ms = [_turn_z(np.eye(4), deg, shift).astype(np.float64) for deg, shift in turns]
+    src, valid, tgt, scalars, vps, seeds, Ms = batch_pairs(dev, a, b, vp_a, vp_b, radii)
     n = a.shape[0]
-    src = torch.from_numpy(np.stack([a] * 4)).to(dev)
-    tgt = torch.from_numpy(np.stack([(b @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
-                                     for M in Ms])).to(dev)
-    valid = torch.ones((4, n), dtype=torch.bool, device=dev)
-    scalars = torch.tensor([[radii[k] for k in RADII_KEYS]] * 4, dtype=torch.float32,
-                           device=dev)
-    vps = torch.from_numpy(np.stack([
-        np.stack([vp_a, (M[:3, :3] @ vp_b + M[:3, 3]).astype(np.float32)]) for M in Ms])).to(dev)
-    seeds = [SEED + i for i in range(4)]
-    step = make_register_batch(cfg)
+    step = make_register_batch(None, cfg)
     step(src[:1], valid[:1], tgt[:1], valid[:1], seeds[:1], scalars[:1], vps[:1])  # warm-up
     torch.cuda.synchronize()
     zero_counters()
@@ -2313,7 +2341,7 @@ def batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
             np.float32))
         conv = bool(o["converged"])
         ok = conv and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
-        log(f"# batch pair {i} (turn {turns[i][0]:g} deg): converged={conv} r_err={r_err:.5f} "
+        log(f"# batch pair {i} (turn {TURNS[i][0]:g} deg): converged={conv} r_err={r_err:.5f} "
             f"t_err={t_err:.4f} inliers={int(inl[i])} corr={float(nc[i]):.0f} "
             f"equal to the step: {same}; step {step_s[-1]:.4f} s")
         assert same, f"batch pair {i}: not torch.equal to register_pair_step"
@@ -2322,6 +2350,283 @@ def batch_phase(dev, a, b, vp_a, vp_b, T_gt, radii) -> dict:
         f"{np.mean(step_s):.4f} s a pair); launches {got}")
     return dict(launches=got, seconds_per_pair=batch_s,
                 step_seconds_per_pair=float(np.mean(step_s)))
+
+
+# the mesh phase: the ('dp', 'tp') batch step (parallel/mesh.py, batch.py)
+MESH_DIR = ROOT / "chiprun_out" / "mesh"
+MESH_TIMEOUT = 600  # seconds for the tp = 2 ranks' whole run
+AT_FORMS = ("iss_count_at_cuda", "iss_saliency_at_cuda", "iss_nms_at_cuda")
+
+
+def mesh_cfgs() -> dict:
+    """The mesh phase's configurations, batch_phase's settings: FPFH with
+    ISS keypoints and cluster matching (K2-K4 and K5 at the shard's rows, K7
+    on train shards, the keypoint kNN with the self row left out), and
+    batch_phase's keypoint-any FPFH with mutual matching."""
+    from lidar_global_registration_tpu_torch.models.flagship import FlagshipConfig
+
+    base = dict(rounds=8, hypothesis_batch=1024, match_tile=4096, metric="correspondences")
+    return {"iss": FlagshipConfig(use_iss=True, **base),
+            "any": FlagshipConfig(use_iss=False, **base)}
+
+
+# the forms each configuration's tp step launches; every other stays at 0
+MESH_NEED = {"iss": AT_FORMS + ("spfh_at_cuda", "nn_l2_cuda"),
+             "any": ("spfh_at_cuda", "nn_l2_cuda")}
+
+
+def mesh_batches(mesh, dev, inp: dict, label: str) -> dict:
+    """Each configuration's batch over `mesh` on the pairs of `inp`: a
+    warm-up of one pair, then the 4 pairs with every counter set to 0 just
+    before and read just after.  Returns {config: T, inliers, n_corr (on
+    the CPU), seconds a pair, launches}."""
+    import torch
+    import torch.distributed as dist
+
+    from lidar_global_registration_tpu_torch.parallel.batch import make_register_batch
+
+    src, valid, tgt, scalars, vps = (inp[k].to(dev) for k in ("src", "valid", "tgt", "scalars",
+                                                               "vps"))
+    seeds = inp["seeds"]
+    out = {}
+    for name, cfg in mesh_cfgs().items():
+        step = make_register_batch(mesh, cfg)
+        step(src[:1], valid[:1], tgt[:1], valid[:1], seeds[:1], scalars[:1], vps[:1])  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero_counters()
+        t0 = time.perf_counter()
+        T, inl, nc = step(src, valid, tgt, valid, seeds, scalars, vps)
+        T = T.cpu()
+        secs = (time.perf_counter() - t0) / len(seeds)
+        out[name] = dict(T=T, inliers=inl.cpu(), n_corr=nc.cpu(), seconds_per_pair=secs,
+                         launches=read_counters())
+        log(f"# mesh {label} {name}: {secs:.4f} s a pair; launches {out[name]['launches']}")
+    return out
+
+
+def mesh_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of the tp = `world` batch on the card (`python3
+    chip_smoke.py --mesh-rank RANK WORLD STORE DIR`): the processes share
+    cuda:0 over gloo (NCCL refuses two ranks on one device), rendezvous at
+    the FileStore `store`, read the batch from DIR/batch.pt and write their
+    results to DIR/rank<RANK>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from lidar_global_registration_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        res = mesh_batches(make_mesh(world, tp=world), dev,
+                           torch.load(Path(out) / "batch.pt"), f"tp={world} rank {rank}")
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(world: int, d: Path) -> list[dict]:
+    """The tp = `world` ranks as processes of this script; fails when one
+    exits non-zero or they outlast MESH_TIMEOUT, and stops every rank
+    left.  Returns each rank's results."""
+    import torch
+
+    store = d / "store"
+    store.unlink(missing_ok=True)
+    procs = []
+    try:
+        for r in range(world):
+            log_f = open(d / f"rank{r}.log", "w")
+            procs.append((log_f, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r), str(world),
+                 str(store), str(d)], stdout=log_f, stderr=subprocess.STDOUT, cwd=str(ROOT))))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while any(p.poll() is None for _f, p in procs):
+            failed = [r for r, (_f, p) in enumerate(procs) if p.poll() not in (None, 0)]
+            assert not failed and time.monotonic() < deadline, (
+                f"mesh ranks {failed or 'timed out'}: "
+                + " | ".join((d / f"rank{r}.log").read_text()[-3000:] for r in range(world)))
+            time.sleep(0.2)
+        assert all(p.returncode == 0 for _f, p in procs), "a mesh rank failed"
+    finally:
+        for log_f, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    for r in range(world):
+        log(f"# mesh rank {r} log: " + " / ".join(
+            ln for ln in (d / f"rank{r}.log").read_text().splitlines() if ln.startswith("# mesh")))
+    return [torch.load(d / f"rank{r}.pt") for r in range(world)]
+
+
+def at_records(plan, r_iss: float, suffix: str) -> list[dict]:
+    """K2-K4's slot-list forms on one plan at each half of its input rows:
+    against the full forms' rows at those slots (bit for bit: the tp step
+    rests on it) and against the slot-list plain versions (K2 and K4 exact,
+    K3 within saliency_err's bounds); each record's times and bound are the
+    mean over the two halves' launches."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+
+    r2 = cg._f32_square(r_iss)
+    N = plan.order.shape[0]
+    slot = cg.slot_of(plan)
+    halves = [slot[:N // 2][slot[:N // 2] >= 0], slot[N // 2:][slot[N // 2:] >= 0]]
+    c_f, inv_f = cg.iss_count_cuda(plan, r2)
+    s_f, ok_f, nb_f = cg.iss_saliency_cuda(plan, r2, inv_f, 0.975, 0.975)
+    kp_f = cg.iss_nms_cuda(plan, r2, s_f, ok_f, 4)
+    acc = {k: dict(ms=[], plain_ms=[], bound=[], err=[]) for k in ("count", "saliency", "nms")}
+    for sl in halves:
+        sl32 = sl.to(torch.int32)
+        out_i = torch.empty(sl.shape, dtype=torch.int32, device=sl.device)
+        # K2
+        c_k, inv_k = cg.iss_count_at_cuda(plan, r2, sl)
+        assert torch.equal(c_k, c_f[sl]) and torch.equal(inv_k, inv_f[sl]), "K2 at != full"
+        (c_p, inv_p), p_ms = timed_once(lambda: cg.iss_count_at_plain(plan, r2, sl))
+        assert torch.equal(c_k, c_p) and torch.equal(inv_k, inv_p), "K2 at != its plain version"
+        a = acc["count"]
+        a["ms"].append(cuda_ms(lambda: cg.iss_count_at_cuda(plan, r2, sl), 5))
+        a["plain_ms"].append(p_ms)
+        a["err"].append(float((c_k - c_p).abs().max()) if sl.numel() else 0.0)
+        a["bound"].append(stencil_bound("iss_count", plan, c_p.sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, sl32, out_i, c_k, inv_k), slots=sl))
+        # K3 on the full pass's weights
+        got = cg.iss_saliency_at_cuda(plan, r2, inv_f, 0.975, 0.975, sl)
+        assert all(torch.equal(g, f[sl]) for g, f in zip(got, (s_f, ok_f, nb_f))), "K3 at != full"
+        want, p_ms = timed_once(lambda: cg.iss_saliency_at_plain(plan, r2, inv_f, 0.975, 0.975,
+                                                                 sl))
+        err, _flips = saliency_err(got, want, r2, "iss_saliency_at" + suffix)
+        a = acc["saliency"]
+        a["ms"].append(cuda_ms(lambda: cg.iss_saliency_at_cuda(plan, r2, inv_f, 0.975, 0.975, sl),
+                               5))
+        a["plain_ms"].append(p_ms)
+        a["err"].append(err)
+        a["bound"].append(stencil_bound("iss_saliency", plan, want[2].sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, inv_f, sl32, out_i, *got), slots=sl))
+        # K4 on the full pass's saliency
+        kp_k = cg.iss_nms_at_cuda(plan, r2, s_f, ok_f[sl], 4, sl)
+        assert torch.equal(kp_k, kp_f[sl]), "K4 at != full"
+        kp_p, p_ms = timed_once(lambda: cg.iss_nms_at_plain(plan, r2, s_f, ok_f[sl], 4, sl))
+        assert torch.equal(kp_k, kp_p), "K4 at != its plain version"
+        a = acc["nms"]
+        a["ms"].append(cuda_ms(lambda: cg.iss_nms_at_cuda(plan, r2, s_f, ok_f[sl], 4, sl), 5))
+        a["plain_ms"].append(p_ms)
+        a["err"].append(float((kp_k != kp_p).sum()))
+        a["bound"].append(stencil_bound("iss_nms", plan, nb_f[sl].sum(), tbytes(
+            plan.pts, plan.cell_of, plan.cols, s_f, ok_f[sl], sl32, out_i, kp_k), slots=sl))
+    records = []
+    for kind, line in (("count", "1322"), ("saliency", "1344"), ("nms", "1410")):
+        a = acc[kind]
+        bound_ms = [b["bound_ms"] for b in a["bound"]]
+        records.append(dict(
+            name=f"iss_{kind}_at{suffix}", route="cuda",
+            source="lidar_global_registration_tpu_torch/csrc/iss.cu",
+            replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:" + line,
+            max_abs_err=max(a["err"]), queries=[int(h.numel()) for h in halves],
+            ms=float(np.mean(a["ms"])), ms_halves=a["ms"], plain_ms=float(np.mean(a["plain_ms"])),
+            bound_ms=float(np.mean(bound_ms)), bound_by=a["bound"][0]["bound_by"],
+            library_ms=None))
+        log(f"# K{dict(count=2, saliency=3, nms=4)[kind]} iss_{kind}_at{suffix} ok: halves of "
+            f"{N} rows ({records[-1]['queries']} slots), = the full pass's rows, "
+            f"{records[-1]['ms']:.4f} ms (bound {records[-1]['bound_ms']:.4f})")
+    return records
+
+
+def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dict]:
+    """The ('dp', 'tp') batch step on the card: K2-K4's slot-list forms
+    checked at each half of two plans (the 1M graded scan's preprocessed
+    rows on the host path's ISS plan, `host_plan` = (plan, r_iss), and the
+    bench's 65,536-point pair on its ISS plan); then batch_phase's four
+    pairs through make_register_batch(make_mesh(2, tp=2)), two ranks on this
+    card over gloo, and through make_register_batch(make_mesh(1, tp=1)) on
+    NCCL at world size 1 in this process, each with mesh_cfgs(): every pair
+    torch.equal to register_pair_step (run here) and under the bench's rule,
+    each rank's counters set to 0 before its batch and risen after it (K2-K4
+    and K5 at the shard's rows and K7 for ISS, K5 and K7 for keypoint-any,
+    no other form).  Prints the seconds a pair of tp = 2, tp = 1 and the
+    one-process loop (make_register_batch(None, cfg)).  Returns the slot-list
+    records and each run's launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from lidar_global_registration_tpu_torch.models import flagship as fl
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.parallel.batch import make_register_batch
+    from lidar_global_registration_tpu_torch.parallel.mesh import make_mesh
+
+    records = at_records(*host_plan, "_1m")
+    A = torch.from_numpy(a).to(dev)
+    records += at_records(cg.plan_grid(A, torch.ones_like(A[:, 0], dtype=torch.bool),
+                                       radii["iss_src"]), radii["iss_src"], "_64k")
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    src, valid, tgt, scalars, vps, seeds, Ms = batch_pairs(dev, a, b, vp_a, vp_b, radii)
+    inp = dict(src=src.cpu(), valid=valid.cpu(), tgt=tgt.cpu(), scalars=scalars.cpu(),
+               vps=vps.cpu(), seeds=seeds)
+    torch.save(inp, MESH_DIR / "batch.pt")
+    ref, loop_s = {}, {}
+    for name, cfg in mesh_cfgs().items():
+        ref[name] = [fl.register_pair_step(src[i], valid[i], tgt[i], valid[i],
+                                           torch.Generator(device=dev).manual_seed(seeds[i]),
+                                           *scalars[i].tolist(), vp_src=vps[i, 0],
+                                           vp_tgt=vps[i, 1], cfg=cfg) for i in range(4)]
+        loop = make_register_batch(None, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(src, valid, tgt, valid, seeds, scalars, vps)[0].cpu()
+        loop_s[name] = (time.perf_counter() - t0) / 4
+    t0 = time.perf_counter()
+    runs = {f"tp2_rank{r}": res for r, res in enumerate(run_ranks(2, MESH_DIR))}
+    log(f"# mesh tp=2: two ranks on one card over gloo, {time.perf_counter() - t0:.1f} s "
+        f"with their start-up")
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR / 'store_nccl'}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        runs["tp1_nccl"] = mesh_batches(make_mesh(1, tp=1), dev, inp, "tp=1 nccl")
+    finally:
+        dist.destroy_process_group()
+    launches = {}
+    for run, res in runs.items():
+        for name, got in res.items():
+            check_counts(f"mesh {run} {name}", got["launches"], MESH_NEED[name])
+            launches[f"mesh_{run}_{name}"] = dict(launches=got["launches"])
+            for i, o in enumerate(ref[name]):
+                same = (torch.equal(got["T"][i], o["transformation"].cpu())
+                        and torch.equal(got["inliers"][i], o["inliers"].cpu())
+                        and torch.equal(got["n_corr"][i], o["n_correspondences"].cpu()))
+                r_err, t_err, finite = pose_error({"transformation": got["T"][i]},
+                                                  (Ms[i] @ T_gt).astype(np.float32))
+                ok = bool(o["converged"]) and r_err < R_ERR_MAX and t_err < radii["thr"] and finite
+                log(f"# mesh {run} {name} pair {i}: r_err={r_err:.5f} t_err={t_err:.4f} "
+                    f"inliers={int(got['inliers'][i])} corr={float(got['n_corr'][i]):.0f} "
+                    f"equal to the step: {same}")
+                assert same, f"mesh {run} {name} pair {i}: not torch.equal to register_pair_step"
+                assert ok, f"mesh {run} {name} pair {i} failed the bench's success rule"
+    gpu = gpu_line()
+    for name in mesh_cfgs():
+        log(f"# mesh {name} seconds a pair on {gpu}: tp=2 (gloo, two ranks on one card; not "
+            f"an NCCL time) {runs['tp2_rank0'][name]['seconds_per_pair']:.4f} / "
+            f"{runs['tp2_rank1'][name]['seconds_per_pair']:.4f}, tp=1 (nccl) "
+            f"{runs['tp1_nccl'][name]['seconds_per_pair']:.4f}, one-process loop "
+            f"{loop_s[name]:.4f}")
+    for rec in records:
+        form = WRAPPER_OF[rec["name"]]
+        rec["launches"] = sum(runs[f"tp2_rank{r}"]["iss"]["launches"][form] for r in range(2))
+        rec["launches_tp1"] = runs["tp1_nccl"]["iss"]["launches"][form]
+    return records, launches
 
 
 # the debug side of the command line on the 1M scans: the artifacts each
@@ -2520,12 +2825,13 @@ def cli_phase(dev):
     guess, GROR's preparation and the hypothesis pool (host_extras) and
     GROR's preparation's kernels at their shapes (gror_records).  Returns
     (each run's kernel launches, the host path's kernel records,
-    host_extras' phases)."""
+    host_extras' phases, (the host path's ISS plan of the 1M source scan,
+    its radius))."""
     import torch
 
     from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
 
-    launches, host, extras = {}, [], {}
+    launches, host, extras, host_plan = {}, [], {}, None
     need = {"shot": [w for k, w in CLI_WRAPPERS if k not in ("spfh", "combine")],
             "fpfh": [w for _k, w in CLI_WRAPPERS]}
     for n, tag in ((N_PYR, "1m"), (N_ISS, "10m")):
@@ -2562,6 +2868,7 @@ def cli_phase(dev):
                 got, r_iss, loaded = host_captures(d, fr, dev)
                 save_features_check(d, fr, loaded, written)
                 host = host_records(got, r_iss)
+                host_plan = (got["iss_count_cuda"][0], r_iss)
                 del got
                 extras, got, r_gror = host_extras(d, fr, dev, loaded)
                 del loaded
@@ -2581,7 +2888,7 @@ def cli_phase(dev):
             assert all(got[w] == 0 for w in CLI_OFF), f"{label}: a form off the CLI path ran: {got}"
             launches[label] = got
     log(f"# launches in the CLI runs: {launches}")
-    return launches, host, extras
+    return launches, host, extras, host_plan
 
 
 def cli_metrics(d: Path, rows: list[dict]) -> None:
@@ -2878,8 +3185,13 @@ def main() -> int:
 
     # the command line, as a user runs it, on the graded 1M and 10M pairs:
     # each record reads its own form's counter (0 for the forms off the path)
-    cli_launches, host, extras = cli_phase(dev)
+    cli_launches, host, extras, host_plan = cli_phase(dev)
     elapsed("CLI phase")
+    mesh_records, mesh_launches = mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan)
+    del host_plan
+    one_graph.update(mesh_launches)
+    records += mesh_records
+    elapsed("mesh phase")
     for rec in host:  # GROR's preparation runs in its own phase of the host process
         main_run = (extras["gror_prep"]["launches"] if rec["name"].endswith("_gror")
                     else cli_launches["cli_host_1m"])
@@ -2905,4 +3217,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -315,7 +315,8 @@ def _device_report(dev: torch.device) -> None:
     from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
 
     wrappers = (cellgrid.surface_cuda, cellgrid.surface_at_cuda, cellgrid.iss_count_cuda,
-                cellgrid.iss_saliency_cuda, cellgrid.iss_nms_cuda, cellgrid.spfh_cuda,
+                cellgrid.iss_saliency_cuda, cellgrid.iss_nms_cuda, cellgrid.iss_count_at_cuda,
+                cellgrid.iss_saliency_at_cuda, cellgrid.iss_nms_at_cuda, cellgrid.spfh_cuda,
                 cellgrid.spfh_at_cuda, cellgrid.combine_cuda, cellgrid.combine_at_cuda,
                 nn_l2.nn_l2_cuda, nn_l2.nn_l2_bf16_cuda)
     launches = {w.__name__: w.launches for w in wrappers}

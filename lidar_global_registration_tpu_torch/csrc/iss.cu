@@ -15,6 +15,14 @@
 // also writes out once per point, K4 compares the query's saliency with each
 // neighbour's K3 saliency.
 //
+// Each kernel has a slot-list form (kAt = true, the `_at` entry points) for
+// a tp peer of parallel/batch.py, which owns a shard of the input rows: they
+// land scattered over the plan's slots.  Thread t takes slots[t] (ascending,
+// so a warp's queries still share cells) and writes output row rows[t]; K3
+// and K4 read the whole cloud's K2 weights and K3 saliencies, gathered from
+// the peers.  The per-query body is the full form's, so a slot's outputs are
+// the full pass's bit for bit.
+//
 // Bound on the H100 by the warps' issue rate with part of each warp idle,
 // not by bytes and not by load latency: a thread tests every candidate of its
 // 27-cell stencil (3 to 8 times the points within the ISS radius), the
@@ -40,12 +48,15 @@ constexpr int kThreads = 128;
 // K3 gained 2-3 % from, measured 0.3 % slower here.  What K2 adds is the
 // second output: 1 / max(count, 1) once per point, where the count is in a
 // register, for K3 to read at every hit.
+template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_count_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                     const int2* __restrict__ cols, int n, float r2, int* __restrict__ count,
+                     const int2* __restrict__ cols, const int* __restrict__ slots,
+                     const int* __restrict__ rows, int n, float r2, int* __restrict__ count,
                      float* __restrict__ inv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int i = kAt ? slots[t] : t, o = kAt ? rows[t] : t;
   const float4 q = pts[i];
   int c = 0;
   lgr::walk_stencil(cols, cell_of[i], [&](int j) {
@@ -53,8 +64,8 @@ __global__ void __launch_bounds__(kThreads)
     const float dx = p.x - q.x, dy = p.y - q.y, dz = p.z - q.z;
     if (dx * dx + dy * dy + dz * dz <= r2) ++c;  // self included (d2 = 0)
   });
-  count[i] = c;
-  inv[i] = 1.f / fmaxf(static_cast<float>(c), 1.f);  // the IEEE float32 quotient
+  count[o] = c;
+  inv[o] = 1.f / fmaxf(static_cast<float>(c), 1.f);  // the IEEE float32 quotient
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -79,13 +90,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // 1.4 radii; the cause is not known.  With `inv` read: the fold behind an
 // empty asm statement measured the same, a warp vote that skips steps no
 // lane hits lost 27 %, the weight loaded ahead of the test 19 %.
+template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_saliency_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                        const int2* __restrict__ cols, const float* __restrict__ inv, int n,
+                        const int2* __restrict__ cols, const float* __restrict__ inv,
+                        const int* __restrict__ slots, const int* __restrict__ rows, int n,
                         float r2, float gamma21, float gamma32, float* __restrict__ sal,
                         unsigned char* __restrict__ ok, int* __restrict__ nnb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int i = kAt ? slots[t] : t, o = kAt ? rows[t] : t;
   const float4 q = pts[i];
   float ws = 0.f, sxx = 0.f, sxy = 0.f, sxz = 0.f, syy = 0.f, syz = 0.f, szz = 0.f;
   int nb = 0;
@@ -117,9 +131,9 @@ __global__ void __launch_bounds__(kThreads)
                      szz / wsafe, l3, l2, l1, vx, vy, vz);
   const bool good = ws > 0.f && l2 / fmaxf(l1, 1e-30f) < gamma21 &&
                     l3 / fmaxf(l2, 1e-30f) < gamma32 && l3 > 0.f;
-  sal[i] = good ? l3 : 0.f;
-  ok[i] = good ? 1 : 0;
-  nnb[i] = nb;
+  sal[o] = good ? l3 : 0.f;
+  ok[o] = good ? 1 : 0;
+  nnb[o] = nb;
 }
 
 // K4.  kp = ok && nb >= min_nb && s > max over the neighbours' sal, which
@@ -136,19 +150,22 @@ __global__ void __launch_bounds__(kThreads)
 // twice as slow.
 constexpr int kCoopBelow = 8;
 
+template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_nms_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
                    const int2* __restrict__ cols, const float* __restrict__ sal,
-                   const unsigned char* __restrict__ ok, int n, float r2, int min_nb,
+                   const unsigned char* __restrict__ ok, const int* __restrict__ slots,
+                   const int* __restrict__ rows, int n, float r2, int min_nb,
                    const lgr::NearGrid grid, unsigned char* __restrict__ kp) {
   using Order = lgr::NearOrder<true>;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = t >= n ? 0 : kAt ? slots[t] : t, o = t >= n ? 0 : kAt ? rows[t] : t;
   float s = 0.f;
   float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
   int cell = 0;
   unsigned todo = 0;
-  bool open = i < n && ok[i];  // only queries that passed K3 can be keypoints
+  bool open = t < n && ok[o];  // only queries that passed K3 can be keypoints
   if (open) {
     s = sal[i];
     open = s > -lgr::kBig;
@@ -223,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lane == owner) key = !blocked && nb + cnt >= min_nb;
   }
-  if (i < n) kp[i] = key ? 1 : 0;
+  if (t < n) kp[o] = key ? 1 : 0;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -234,9 +251,24 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 // i32[n] points within r, self included; inv f32[n] = 1 / max(count, 1).
 extern "C" int lgr_iss_count(const void* pts, const void* cell_of, const void* cols, int n,
                              float r2, void* count, void* inv, void* stream) {
-  iss_count_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  iss_count_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), n, r2, static_cast<int*>(count),
+      static_cast<const int2*>(cols), nullptr, nullptr, n, r2, static_cast<int*>(count),
+      static_cast<float*>(inv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The slot-list forms: thread t takes the sorted query slots[t] and writes
+// output row rows[t] of m rows; the per-query body is the full form's, so a
+// slot's outputs are bit-equal to the full pass's at that slot.  slots
+// ascending (by cell, as the full pass runs) keeps a warp's walks together.
+extern "C" int lgr_iss_count_at(const void* pts, const void* cell_of, const void* cols,
+                                const void* slots, const void* rows, int m, float r2,
+                                void* count, void* inv, void* stream) {
+  iss_count_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
+      static_cast<const int2*>(cols), static_cast<const int*>(slots),
+      static_cast<const int*>(rows), m, r2, static_cast<int*>(count),
       static_cast<float*>(inv));
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,9 +278,24 @@ extern "C" int lgr_iss_count(const void* pts, const void* cell_of, const void* c
 extern "C" int lgr_iss_saliency(const void* pts, const void* cell_of, const void* cols,
                                 const void* inv, int n, float r2, float gamma21,
                                 float gamma32, void* sal, void* ok, void* nnb, void* stream) {
-  iss_saliency_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  iss_saliency_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const float*>(inv), n, r2, gamma21, gamma32,
+      static_cast<const int2*>(cols), static_cast<const float*>(inv), nullptr, nullptr, n, r2,
+      gamma21, gamma32, static_cast<float*>(sal), static_cast<unsigned char*>(ok),
+      static_cast<int*>(nnb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// inv f32[n]: every sorted point's weight (the whole cloud's); sal, ok, nnb
+// [m] at the output rows.
+extern "C" int lgr_iss_saliency_at(const void* pts, const void* cell_of, const void* cols,
+                                   const void* inv, const void* slots, const void* rows, int m,
+                                   float r2, float gamma21, float gamma32, void* sal, void* ok,
+                                   void* nnb, void* stream) {
+  iss_saliency_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
+      static_cast<const int2*>(cols), static_cast<const float*>(inv),
+      static_cast<const int*>(slots), static_cast<const int*>(rows), m, r2, gamma21, gamma32,
       static_cast<float*>(sal), static_cast<unsigned char*>(ok), static_cast<int*>(nnb));
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,10 +305,25 @@ extern "C" int lgr_iss_saliency(const void* pts, const void* cell_of, const void
 extern "C" int lgr_iss_nms(const void* pts, const void* cell_of, const void* cols,
                            const void* sal, const void* ok, int n, float r2, int min_nb,
                            const void* origin, double cell, void* kp, void* stream) {
-  iss_nms_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  iss_nms_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
       static_cast<const int2*>(cols), static_cast<const float*>(sal),
-      static_cast<const unsigned char*>(ok), n, r2, min_nb,
+      static_cast<const unsigned char*>(ok), nullptr, nullptr, n, r2, min_nb,
       lgr::near_grid(origin, cell, r2), static_cast<unsigned char*>(kp));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sal f32[n]: every sorted point's saliency (the whole cloud's); ok bool[m]
+// and kp bool[m] at the output rows.
+extern "C" int lgr_iss_nms_at(const void* pts, const void* cell_of, const void* cols,
+                              const void* sal, const void* ok, const void* slots,
+                              const void* rows, int m, float r2, int min_nb, const void* origin,
+                              double cell, void* kp, void* stream) {
+  iss_nms_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
+      static_cast<const int2*>(cols), static_cast<const float*>(sal),
+      static_cast<const unsigned char*>(ok), static_cast<const int*>(slots),
+      static_cast<const int*>(rows), m, r2, min_nb, lgr::near_grid(origin, cell, r2),
+      static_cast<unsigned char*>(kp));
   return static_cast<int>(cudaGetLastError());
 }

@@ -548,19 +548,22 @@ _NORMAL_ROWS = 1 << 18  # query rows per block of _side_stage's covariances
 _NORMAL_K = 16
 
 
-def _density_from_knn(idx, dist, mask, valid):
+def _density_from_knn(idx, dist, mask, valid, gather_rows=None):
     """The k = 2 smoothed density (common.cpp:531-547) from the normals'
     neighbour lists (flagship._density_from_knn): d = the distance to the
     nearest neighbour that is not the point itself (d > 1e-12), smoothed
     by the min with that neighbour's own d; 0 where no neighbour lies in the
-    lists.  f32[N]."""
+    lists.  gather_rows: for a caller holding a shard of the rows (idx are
+    rows of the whole cloud; parallel/batch.py), maps the shard's d to the
+    whole cloud's, where the smoothing neighbour may lie on another peer's
+    shard.  f32[rows]."""
     seen = mask & (dist > 1e-12)
     dmat = torch.where(seen, dist, BIG)
     a = _first_argmax(-dmat)[:, None]  # the first of equal minima, as jnp.argmin
     d_raw = dmat.gather(1, a)[:, 0]
     nn = idx.gather(1, a)[:, 0]
     has = seen.any(1)
-    d_nn = d_raw[nn]
+    d_nn = (d_raw if gather_rows is None else gather_rows(d_raw))[nn]
     out = torch.minimum(d_raw, torch.where(d_nn < BIG, d_nn, d_raw))
     return torch.where(valid & has & (out < BIG), out, 0.0)
 
@@ -1188,17 +1191,24 @@ def register_pair_staged(
 # ---------------------------------------------------------------------------
 # the one-graph entry points: register_pair_step, register_pair_two_stage
 # ---------------------------------------------------------------------------
+def _knn_self(pts, valid, k: int):
+    """Same-set exact k-NN, self excluded by id (match_bf exclude_diag)."""
+    return matchers.match_bf(pts, pts, valid, valid, k=k, exclude_diag=True)
+
+
 def _cluster_filter_rows(xyz_s, kpv_s, xyz_t, kpv_t, idx_st, mask_st, idx_ts, mask_ts, dens_s,
-                         dens_t, cfg: FlagshipConfig):
+                         dens_t, cfg: FlagshipConfig, knn_self=_knn_self):
     """The cluster gate over full rows (flagship._cluster_filter_rows,
     ClusterMatcher, matching.h:480-551): the keypoints' exact kc-NN per side
     (self excluded by id, centred), _consensus_keep, and the keypoint-cloud
-    density from its column 0 as the thresholds at keypoint rows.  Returns
-    (mask_st', dens_s', dens_t')."""
+    density from its column 0 as the thresholds at keypoint rows.
+    knn_self(points, valid, k) -> (idx, dist, mask) is that kNN: _knn_self,
+    or the tp peers' shard merge (parallel/batch.py).  Returns (mask_st',
+    dens_s', dens_t')."""
     kc = max(2, min(cfg.cluster_k, min(xyz_s.shape[0], xyz_t.shape[0]) - 1))
     ksq, kst = _centred(xyz_s, kpv_s), _centred(xyz_t, kpv_t)
-    kq = matchers.match_bf(ksq, ksq, kpv_s, kpv_s, k=kc, exclude_diag=True)
-    kt = matchers.match_bf(kst, kst, kpv_t, kpv_t, k=kc, exclude_diag=True)
+    kq = knn_self(ksq, kpv_s, kc)
+    kt = knn_self(kst, kpv_t, kc)
     keep_q = _consensus_keep(idx_st[:, 0], mask_st[:, 0], idx_ts[:, 0], mask_ts[:, 0], kq, kt,
                              cfg)
     dens_s2 = torch.where(kpv_s, _kp_density_nearest(*(a[:, :1] for a in kq)), dens_s)
@@ -1248,14 +1258,25 @@ def register_pair_step(src_xyz, src_valid, tgt_xyz, tgt_valid, generator: torch.
                    iss_radius_tgt, feature_radius, distance_thr)
     (fq, fq_valid, dens_s), (ft, ft_valid, dens_t) = _step_sides(
         src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg)
-    idx_st, mask_st, idx_ts, mask_ts = _nn_both_ways(fq, ft, fq_valid, ft_valid, cfg)
+    return _filter_and_solve(src_xyz, tgt_xyz, fq_valid, ft_valid,
+                             _nn_both_ways(fq, ft, fq_valid, ft_valid, cfg), dens_s, dens_t,
+                             radii[6], generator, cfg)
+
+
+def _filter_and_solve(src_xyz, tgt_xyz, fq_valid, ft_valid, nn, dens_s, dens_t,
+                      distance_thr: float, generator, cfg: FlagshipConfig, knn_self=_knn_self):
+    """register_pair_step after the 1-NN both ways (nn = idx_st, mask_st,
+    idx_ts, mask_ts over full rows): the cluster filter (ISS with cluster
+    matching; knn_self its keypoint kNN) or the mutual filter, the
+    correspondence stage and ransac_solve."""
+    idx_st, mask_st, idx_ts, mask_ts = nn
     clustered = cfg.use_iss and cfg.cluster_matching
     if clustered:
         mask_st, dens_s, dens_t = _cluster_filter_rows(
             src_xyz, fq_valid, tgt_xyz, ft_valid, idx_st, mask_st, idx_ts, mask_ts, dens_s,
-            dens_t, cfg)
+            dens_t, cfg, knn_self)
     j, mutual, thr = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t,
-                                           radii[6], require_mutual=not clustered)
+                                           distance_thr, require_mutual=not clustered)
     return ransac_solve(src_xyz, tgt_xyz[j], thr, mutual, generator, cfg)
 
 

@@ -158,16 +158,19 @@ def _unsort(plan: GridPlan, sorted_rows: torch.Tensor, fill=0.0) -> torch.Tensor
     return out
 
 
-def candidates_from_cols(cols: torch.Tensor):
+def candidates_from_cols(cols: torch.Tensor, width: int | None = None):
     """Padded candidate block of queries with stencil column ranges
     `cols` (i64[m, C, 2]): (ids i64[m, L], ok bool[m, L]), every sorted
-    slot of the columns, in column order."""
+    slot of the columns, in column order; L is the widest row's count, or
+    `width` (at least that) when given."""
     cols = cols.long()
     start = cols[..., 0]
     ln = cols[..., 1] - start
     cum = ln.cumsum(1)
     tot = cum[:, -1]
     L = max(int(tot.max()) if tot.numel() else 0, 1)
+    if width is not None:
+        L = max(L, int(width))
     k = torch.arange(L, device=cols.device)[None, :].expand(cols.shape[0], L).contiguous()
     col = torch.searchsorted(cum, k, right=True).clamp_max(cols.shape[1] - 1)
     before = cum.gather(1, col) - ln.gather(1, col)
@@ -176,11 +179,11 @@ def candidates_from_cols(cols: torch.Tensor):
     return torch.where(ok, ids, 0), ok
 
 
-def candidates_at(plan: GridPlan, slots: torch.Tensor):
+def candidates_at(plan: GridPlan, slots: torch.Tensor, width: int | None = None):
     """Padded candidate block of the sorted queries `slots` (i64[m]):
     (ids i64[m, L], ok bool[m, L]) — every point of the 9 stencil columns,
-    in column order."""
-    return candidates_from_cols(plan.cols[plan.cell_of[slots].long()])
+    in column order (L at least `width` when given)."""
+    return candidates_from_cols(plan.cols[plan.cell_of[slots].long()], width)
 
 
 def candidates(plan: GridPlan, q0: int, q1: int):
@@ -232,6 +235,26 @@ def _slot_chunks(plan: GridPlan, slots: torch.Tensor):
     if slots.numel() == 0:
         return []
     return [((a, b), slots[a:b]) for a, b in _chunk_ranges(_stencil_lens(plan, slots))]
+
+
+def _full_pass_groups(plan: GridPlan, slots: torch.Tensor):
+    """(positions, slots, width) groups of a sorted-slot list: the slots
+    that fall in one query chunk of the full pass (_query_chunks), with the
+    width of that chunk's candidate block.  A plain slot-list form that
+    pads its rows to these widths sums each row over the same block as the
+    full pass, so its float32 sums are the full pass's, bit for bit."""
+    if slots.numel() == 0:
+        return []
+    ranges = _query_chunks(plan)
+    lens = _stencil_lens(plan)
+    starts = torch.tensor([a for a, _b in ranges], dtype=torch.int64, device=slots.device)
+    which = torch.searchsorted(starts, slots, right=True) - 1
+    out = []
+    for c in torch.unique(which).tolist():
+        a, b = ranges[c]
+        pos = torch.nonzero(which == c).squeeze(1)
+        out.append((pos, slots[pos], max(int(lens[a:b].max()), 1)))
+    return out
 
 
 def _pair_d2(plan: GridPlan, slots: torch.Tensor, ids: torch.Tensor):
@@ -493,6 +516,26 @@ def iss_count_plain(plan: GridPlan, r2: float):
     return count, 1.0 / count.to(torch.float32).clamp_min(1.0)
 
 
+def _saliency_rows(plan: GridPlan, r2: float, inv: torch.Tensor, gamma21: float,
+                   gamma32: float, sl: torch.Tensor, ids: torch.Tensor, ok: torch.Tensor):
+    """K3's (saliency, ok, neighbours) of the sorted queries `sl` over their
+    candidate block (ids, ok)."""
+    dx, dy, dz, d2 = _pair_d2(plan, sl, ids)
+    nb = ok & (d2 > 0.0) & (d2 <= r2)
+    w = torch.where(nb, inv[ids], 0.0)
+    ws = w.sum(1)
+    wdx, wdy, wdz = w * dx, w * dy, w * dz
+    wsafe = ws.clamp_min(1e-30)
+    l3, l2, l1, _vx, _vy, _vz = smallest_eig3(
+        (wdx * dx).sum(1) / wsafe, (wdx * dy).sum(1) / wsafe,
+        (wdx * dz).sum(1) / wsafe, (wdy * dy).sum(1) / wsafe,
+        (wdy * dz).sum(1) / wsafe, (wdz * dz).sum(1) / wsafe,
+    )
+    good = ((ws > 0) & (l2 / l1.clamp_min(1e-30) < gamma21)
+            & (l3 / l2.clamp_min(1e-30) < gamma32) & (l3 > 0))
+    return torch.where(good, l3, 0.0), good, nb.sum(1).to(torch.int32)
+
+
 def iss_saliency_plain(plan: GridPlan, r2: float, inv: torch.Tensor,
                        gamma21: float, gamma32: float):
     """Plain version of csrc/iss.cu `iss_saliency_kernel`
@@ -507,22 +550,8 @@ def iss_saliency_plain(plan: GridPlan, r2: float, inv: torch.Tensor,
     okq = torch.zeros((n,), dtype=torch.bool, device=dev)
     nnb = torch.zeros((n,), dtype=torch.int32, device=dev)
     for a, b, sl, ids, ok in _sorted_chunks(plan):
-        dx, dy, dz, d2 = _pair_d2(plan, sl, ids)
-        nb = ok & (d2 > 0.0) & (d2 <= r2)
-        w = torch.where(nb, inv[ids], 0.0)
-        ws = w.sum(1)
-        wdx, wdy, wdz = w * dx, w * dy, w * dz
-        wsafe = ws.clamp_min(1e-30)
-        l3, l2, l1, _vx, _vy, _vz = smallest_eig3(
-            (wdx * dx).sum(1) / wsafe, (wdx * dy).sum(1) / wsafe,
-            (wdx * dz).sum(1) / wsafe, (wdy * dy).sum(1) / wsafe,
-            (wdy * dz).sum(1) / wsafe, (wdz * dz).sum(1) / wsafe,
-        )
-        good = ((ws > 0) & (l2 / l1.clamp_min(1e-30) < gamma21)
-                & (l3 / l2.clamp_min(1e-30) < gamma32) & (l3 > 0))
-        sal[a:b] = torch.where(good, l3, 0.0)
-        okq[a:b] = good
-        nnb[a:b] = nb.sum(1).to(torch.int32)
+        sal[a:b], okq[a:b], nnb[a:b] = _saliency_rows(plan, r2, inv, gamma21, gamma32, sl, ids,
+                                                      ok)
     return sal, okq, nnb
 
 
@@ -533,10 +562,63 @@ def iss_nms_plain(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tenso
     (self excluded) and a saliency above every neighbour's.  bool[n]."""
     kp = torch.zeros((plan.n_valid,), dtype=torch.bool, device=plan.pts.device)
     for a, b, sl, ids, ok in _sorted_chunks(plan):
+        kp[a:b] = _nms_rows(plan, r2, sal, okq[a:b], min_neighbors, sl, ids, ok)
+    return kp
+
+
+def _nms_rows(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+              min_neighbors: int, sl: torch.Tensor, ids: torch.Tensor, ok: torch.Tensor):
+    d2 = _pair_d2(plan, sl, ids)[3]
+    nb = ok & (d2 > 0.0) & (d2 <= r2)
+    nb_max = torch.where(nb, sal[ids], -BIG).amax(1)
+    return okq & (nb.sum(1) >= min_neighbors) & (sal[sl] > nb_max)
+
+
+# The slot-list forms of K2-K4 (the `_at` functions): only the sorted
+# queries `slots` (i64[m], any order, no padding) are computed, and each
+# output row m belongs to the slot at that position.  K3 and K4 read the
+# whole cloud's K2 weights and K3 saliencies at the neighbours (a tp peer
+# gathers them from the others), so a slot's outputs equal the full pass's
+# at that slot bit for bit.
+def iss_count_at_plain(plan: GridPlan, r2: float, slots: torch.Tensor):
+    """Plain version of `lgr_iss_count_at`: (count i32[m], inv f32[m]) of
+    the sorted queries `slots`, as iss_count_plain computes them."""
+    count = torch.zeros((slots.shape[0],), dtype=torch.int32, device=plan.pts.device)
+    for (a, b), sl in _slot_chunks(plan, slots):
+        ids, ok = candidates_at(plan, sl)
         d2 = _pair_d2(plan, sl, ids)[3]
-        nb = ok & (d2 > 0.0) & (d2 <= r2)
-        nb_max = torch.where(nb, sal[ids], -BIG).amax(1)
-        kp[a:b] = okq[a:b] & (nb.sum(1) >= min_neighbors) & (sal[a:b] > nb_max)
+        count[a:b] = (ok & (d2 <= r2)).sum(1).to(torch.int32)
+    return count, 1.0 / count.to(torch.float32).clamp_min(1.0)
+
+
+def iss_saliency_at_plain(plan: GridPlan, r2: float, inv: torch.Tensor, gamma21: float,
+                          gamma32: float, slots: torch.Tensor):
+    """Plain version of `lgr_iss_saliency_at`: inv f32[n] every sorted
+    point's K2 weight; returns (saliency f32[m], ok bool[m], neighbours
+    i32[m]) of the sorted queries `slots`.  Each slot's candidate block is
+    as wide as the full pass's chunk that holds it (_full_pass_groups), so
+    the rows equal iss_saliency_plain's."""
+    dev = plan.pts.device
+    m = slots.shape[0]
+    sal = torch.zeros((m,), dtype=torch.float32, device=dev)
+    okq = torch.zeros((m,), dtype=torch.bool, device=dev)
+    nnb = torch.zeros((m,), dtype=torch.int32, device=dev)
+    for pos, sl, width in _full_pass_groups(plan, slots):
+        ids, ok = candidates_at(plan, sl, width)
+        sal[pos], okq[pos], nnb[pos] = _saliency_rows(plan, r2, inv, gamma21, gamma32, sl, ids,
+                                                      ok)
+    return sal, okq, nnb
+
+
+def iss_nms_at_plain(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+                     min_neighbors: int, slots: torch.Tensor) -> torch.Tensor:
+    """Plain version of `lgr_iss_nms_at`: sal f32[n] every sorted point's
+    K3 saliency, okq bool[m] the K3 gates of the queries `slots`; returns
+    their keypoint flags bool[m]."""
+    kp = torch.zeros((slots.shape[0],), dtype=torch.bool, device=plan.pts.device)
+    for (a, b), sl in _slot_chunks(plan, slots):
+        ids, ok = candidates_at(plan, sl)
+        kp[a:b] = _nms_rows(plan, r2, sal, okq[a:b], min_neighbors, sl, ids, ok)
     return kp
 
 
@@ -639,6 +721,96 @@ def iss_nms_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor
 
 
 iss_nms_cuda.launches = 0
+
+
+def iss_count_at_cuda(plan: GridPlan, r2: float, slots: torch.Tensor):
+    """K2 slot-list form · `iss_count_kernel` at the sorted queries
+    `slots`: same contract as iss_count_at_plain."""
+    m = slots.shape[0]
+    dev = plan.pts.device
+    count = torch.empty((m,), dtype=torch.int32, device=dev)
+    inv = torch.empty((m,), dtype=torch.float32, device=dev)
+    if m == 0:
+        return count, inv
+    _check_plan(plan)
+    srt, rows = combine_order(slots.to(torch.int32))
+    kernels.launch("lgr_iss_count_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), srt.data_ptr(), rows.data_ptr(), m, r2,
+                   count.data_ptr(), inv.data_ptr(), _stream(plan))
+    iss_count_at_cuda.launches += 1
+    return count, inv
+
+
+iss_count_at_cuda.launches = 0
+
+
+def iss_saliency_at_cuda(plan: GridPlan, r2: float, inv: torch.Tensor, gamma21: float,
+                         gamma32: float, slots: torch.Tensor):
+    """K3 slot-list form · `iss_saliency_kernel` at the sorted queries
+    `slots`: same contract as iss_saliency_at_plain."""
+    m = slots.shape[0]
+    dev = plan.pts.device
+    sal = torch.empty((m,), dtype=torch.float32, device=dev)
+    okq = torch.empty((m,), dtype=torch.bool, device=dev)
+    nnb = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return sal, okq, nnb
+    _check_plan(plan)
+    kernels.check(inv, torch.float32, (plan.n_valid,), "inv")
+    srt, rows = combine_order(slots.to(torch.int32))
+    kernels.launch("lgr_iss_saliency_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), inv.data_ptr(), srt.data_ptr(), rows.data_ptr(), m,
+                   r2, gamma21, gamma32, sal.data_ptr(), okq.data_ptr(), nnb.data_ptr(),
+                   _stream(plan))
+    iss_saliency_at_cuda.launches += 1
+    return sal, okq, nnb
+
+
+iss_saliency_at_cuda.launches = 0
+
+
+def iss_nms_at_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+                    min_neighbors: int, slots: torch.Tensor) -> torch.Tensor:
+    """K4 slot-list form · `iss_nms_kernel` at the sorted queries `slots`:
+    same contract as iss_nms_at_plain."""
+    m = slots.shape[0]
+    kp = torch.empty((m,), dtype=torch.bool, device=plan.pts.device)
+    if m == 0:
+        return kp
+    _check_plan(plan)
+    kernels.check(sal, torch.float32, (plan.n_valid,), "sal")
+    kernels.check(okq, torch.bool, (m,), "ok")
+    kernels.check(plan.origin, torch.float64, (3,), "origin")
+    srt, rows = combine_order(slots.to(torch.int32))
+    kernels.launch("lgr_iss_nms_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
+                   plan.cols.data_ptr(), sal.data_ptr(), okq.data_ptr(), srt.data_ptr(),
+                   rows.data_ptr(), m, r2, int(min_neighbors), plan.origin.data_ptr(),
+                   plan.cell, kp.data_ptr(), _stream(plan))
+    iss_nms_at_cuda.launches += 1
+    return kp
+
+
+iss_nms_at_cuda.launches = 0
+
+
+def iss_count_at(plan: GridPlan, r2: float, slots: torch.Tensor):
+    """K2 at `slots` on the plan's device: the kernel on CUDA, the plain
+    version on CPU."""
+    return (iss_count_at_cuda if plan.pts.is_cuda else iss_count_at_plain)(plan, r2, slots)
+
+
+def iss_saliency_at(plan: GridPlan, r2: float, inv: torch.Tensor, gamma21: float,
+                    gamma32: float, slots: torch.Tensor):
+    """K3 at `slots` on the plan's device (see iss_count_at)."""
+    fn = iss_saliency_at_cuda if plan.pts.is_cuda else iss_saliency_at_plain
+    return fn(plan, r2, inv, gamma21, gamma32, slots)
+
+
+def iss_nms_at(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
+               min_neighbors: int, slots: torch.Tensor) -> torch.Tensor:
+    """K4 at `slots` on the plan's device (see iss_count_at)."""
+    fn = iss_nms_at_cuda if plan.pts.is_cuda else iss_nms_at_plain
+    return fn(plan, r2, sal, okq, min_neighbors, slots)
 
 
 def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
@@ -889,10 +1061,11 @@ def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor, slots=None):
 
 
 def combine_order(slots: torch.Tensor):
-    """The K6 launch order of a slot list: (slots i32[M] ascending, i.e. by
-    cell, padding first; rows i32[M], the output row of each).  A stable
-    sort, so repeats keep their order; neighbouring warps then walk
-    neighbouring cells and share SPFH rows in cache."""
+    """The launch order of a slot list (K6 and the K2-K4 slot-list forms):
+    (slots i32[M] ascending, i.e. by cell, padding first; rows i32[M], the
+    output row of each).  A stable sort, so repeats keep their order;
+    neighbouring warps then walk neighbouring cells and share their rows in
+    cache."""
     srt, rows = torch.sort(slots, stable=True)
     return srt.to(torch.int32).contiguous(), rows.to(torch.int32).contiguous()
 

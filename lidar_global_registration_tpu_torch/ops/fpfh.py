@@ -18,7 +18,10 @@ version on a CPU tensor), where the JAX host path computes it in XLA.  The
 keypoints are not rows of the surface, so the combine at them is plain
 PyTorch over their exact radius neighbours (ops/grid.radius_neighbors on
 the same plan), as it is XLA in JAX; its weighted sum is float32 where the
-JAX package gathers the SPFH table in bfloat16.
+JAX package gathers the SPFH table in bfloat16.  fpfh() is these steps in
+one call; a tp peer (parallel/batch.py) runs them apart: SPFH at its shard's
+rows (K5's slot-list form, spfh_rows), the whole table gathered from its
+peers, then the combine at its shard's keypoints (combine_at).
 """
 from __future__ import annotations
 
@@ -129,6 +132,52 @@ def _nearest_normal(kidx, surface_normal):
     return surface_normal[kidx[:, 0]]
 
 
+def surface_plan(surface_xyz, surface_valid, surface_normal, radius):
+    """The support surface's plan at `radius` with its normals set."""
+    return cellgrid.set_normals(cellgrid.plan_grid(surface_xyz, surface_valid, radius),
+                                surface_normal)
+
+
+def spfh_rows(plan: cellgrid.GridPlan, radius, rows=None):
+    """SPFH of the plan's cloud by input row (f32[N, 33]; 0 at invalid
+    rows): K5's full pass, or with `rows` (i64[m] input rows) K5's
+    slot-list form over those rows only, f32[m, 33].  A row's SPFH is the
+    same either way."""
+    r2 = cellgrid._f32_square(radius)
+    centre = cellgrid.aabb_centre(plan)
+    if rows is None:
+        return cellgrid._unsort(plan, cellgrid.spfh_sorted(plan, r2, centre)[0])
+    slot = cellgrid.slot_of(plan)[rows]
+    live = slot >= 0
+    sorted_rows = cellgrid.spfh_sorted(plan, r2, centre, torch.sort(slot[live]).values)[0]
+    out = torch.zeros((rows.shape[0], DIM), dtype=torch.float32, device=rows.device)
+    out[live] = sorted_rows[slot[live]]
+    return out
+
+
+def keypoint_neighbors(plan: cellgrid.GridPlan, kp_xyz, radius):
+    """Every surface point within `radius` of each keypoint f32[M, 3]
+    (ops/grid.radius_neighbors on the plan: idx, dist, mask [M, K], K the
+    most any keypoint has)."""
+    return grid.radius_neighbors(plan, kp_xyz, torch.ones_like(kp_xyz[:, 0], dtype=torch.bool),
+                                 float(radius), max(plan.n_valid, 1))
+
+
+def combine_at(kp_xyz, kp_normal, surface_xyz, surface_normal, spfh_all, kidx, kdist, kmask):
+    """combine_spfh over blocks of keypoints ([M, K] neighbour lists, the
+    whole surface's SPFH f32[N, 33]).  Returns (feat f32[M, 33], neighbour
+    count i64[M])."""
+    M = kp_xyz.shape[0]
+    feat = torch.zeros((M, DIM), dtype=torch.float32, device=kp_xyz.device)
+    k_cnt = torch.zeros((M,), dtype=torch.int64, device=kp_xyz.device)
+    step = max(1, _SLOTS // max(kidx.shape[1], 1))
+    for a in range(0, M, step):
+        s = slice(a, a + step)
+        feat[s], k_cnt[s] = combine_spfh(kp_xyz[s], kp_normal[s], surface_xyz, surface_normal,
+                                         spfh_all, kidx[s], kdist[s], kmask[s])
+    return feat, k_cnt
+
+
 def fpfh(kp_xyz, kp_valid, surface_xyz, surface_normal, surface_valid, radius,
          kp_normal=None):
     """FPFH-33 of the keypoints kp_xyz f32[M, 3] (kp_valid bool[M]) over the
@@ -141,23 +190,14 @@ def fpfh(kp_xyz, kp_valid, surface_xyz, surface_normal, surface_valid, radius,
     valid."""
     dev = kp_xyz.device
     M = kp_xyz.shape[0]
-    plan = cellgrid.set_normals(cellgrid.plan_grid(surface_xyz, surface_valid, radius),
-                                surface_normal)
-    r2 = cellgrid._f32_square(radius)
-    spfh_all = cellgrid._unsort(plan, cellgrid.spfh_sorted(plan, r2,
-                                                           cellgrid.aabb_centre(plan))[0])
+    plan = surface_plan(surface_xyz, surface_valid, surface_normal, radius)
+    spfh_all = spfh_rows(plan, radius)
     feat = torch.zeros((M, DIM), dtype=torch.float32, device=dev)
     k_cnt = torch.zeros((M,), dtype=torch.int64, device=dev)
     rows = torch.nonzero(kp_valid).squeeze(1)
-    kidx, kdist, kmask = grid.radius_neighbors(
-        plan, kp_xyz[rows], torch.ones_like(rows, dtype=torch.bool), float(radius),
-        max(plan.n_valid, 1))
+    kidx, kdist, kmask = keypoint_neighbors(plan, kp_xyz[rows], radius)
     kn = _nearest_normal(kidx, surface_normal) if kp_normal is None else kp_normal[rows]
-    step = max(1, _SLOTS // max(kidx.shape[1], 1))
-    for a in range(0, rows.shape[0], step):
-        s = slice(a, a + step)
-        feat[rows[s]], k_cnt[rows[s]] = combine_spfh(
-            kp_xyz[rows[s]], kn[s], surface_xyz, surface_normal, spfh_all, kidx[s], kdist[s],
-            kmask[s])
+    feat[rows], k_cnt[rows] = combine_at(kp_xyz[rows], kn, surface_xyz, surface_normal, spfh_all,
+                                         kidx, kdist, kmask)
     feat_valid = kp_valid & (k_cnt > 0)
     return torch.where(feat_valid[:, None], feat, 0.0), feat_valid

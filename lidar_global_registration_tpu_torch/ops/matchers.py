@@ -3,11 +3,13 @@
 The exact k=1 matcher runs the 1-NN kernel of ops/nn_l2.py
 (matchers.py:84-91 routes the JAX package's k=1 to its Pallas counterpart
 the same way), also for the bf16 matcher (its bfloat16-rounded form, see
-ops/nn_l2.py) and for any descriptor width.  k > 1 and the same-set self
-exclusion (`exclude_diag`, the cluster matcher's keypoint kNN) are an exact
-tiled top-k in plain PyTorch: `torch.topk` over query tiles of the
-Gram-trick distance matrix, with the JAX package's BIG masking and self
-exclusion by id (matchers.py:92-149).  The JAX package's `approx=True`
+ops/nn_l2.py) and for any descriptor width; on a train shard it returns
+local rows, and the caller adds the shard's offset (parallel/batch.py).
+k > 1 and the same-set self exclusion (`exclude_diag`, or `exclude_ids`
+with `id_offset` on a shard of the set: the cluster matcher's keypoint kNN)
+are an exact tiled top-k in plain PyTorch: `torch.topk` over query tiles
+of the Gram-trick distance matrix, with the JAX package's BIG masking and
+self exclusion by id (matchers.py:55-77, 92-149).  The JAX package's `approx=True`
 (per-tile `lax.approx_max_k`, a TPU PartialReduce) is not a Pallas kernel;
 here the set is always exact, as JAX computes it on the CPU.
 
@@ -26,11 +28,13 @@ from lidar_global_registration_tpu_torch.ops.nn_l2 import BIG, bf16_round, nn_l2
 _TOPK_SLOTS = 1 << 27  # distance slots per query tile of the top-k
 
 
-def _topk_l2(query, train, tvalid, k: int, exclude_diag: bool, bf16: bool = False):
+def _topk_l2(query, train, tvalid, k: int, exclude_ids, id_offset: int = 0,
+             bf16: bool = False):
     """(best d2 f32[Nq, k] ascending, best index i64[Nq, k]) over every
-    train row; invalid rows and (exclude_diag) the query's own id carry
-    BIG.  bf16: the dot products of the bfloat16-rounded rows, the norms of
-    the float32 rows."""
+    train row; invalid rows and (exclude_ids i64[Nq] or None) the train row
+    whose id_offset + local id is the query's exclude id carry BIG.  bf16:
+    the dot products of the bfloat16-rounded rows, the norms of the float32
+    rows."""
     Nq, Nt = query.shape[0], train.shape[0]
     qn = (query * query).sum(1)
     tn = (train * train).sum(1)
@@ -45,8 +49,8 @@ def _topk_l2(query, train, tvalid, k: int, exclude_diag: bool, bf16: bool = Fals
         q = query[s:s + tile]
         d2 = (qn[s:s + tile, None] + tn[None, :] - 2.0 * (q @ train.T)).clamp_min(0.0)
         d2 = torch.where(tvalid[None, :], d2, BIG)
-        if exclude_diag:
-            own = torch.arange(s, s + q.shape[0], device=query.device)
+        if exclude_ids is not None:
+            own = exclude_ids[s:s + tile] - id_offset
             d2 = torch.where(ids[None, :] == own[:, None], BIG, d2)
         vals, sel = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
         best_d[s:s + tile, :kk] = vals
@@ -56,16 +60,23 @@ def _topk_l2(query, train, tvalid, k: int, exclude_diag: bool, bf16: bool = Fals
 
 def match_bf(query: torch.Tensor, train: torch.Tensor, qvalid: torch.Tensor,
              tvalid: torch.Tensor, k: int = 1, tile: int = 4096, bf16: bool = False,
-             exclude_diag: bool = False):
-    """Exact k-NN in descriptor space (L2).  Returns (idx i64[Nq, k],
-    dist f32[Nq, k] euclidean, mask bool[Nq, k]).  `tile` is the JAX
-    package's train tile; it shapes only the plain 1-NN's query chunks here.
-    bf16: the dot products from bfloat16-rounded rows, the norms from the
-    float32 rows (matchers.py:93-107)."""
-    if k == 1 and not exclude_diag:
+             exclude_diag: bool = False, exclude_ids: torch.Tensor | None = None,
+             id_offset: int = 0):
+    """Exact k-NN in descriptor space (L2).  Returns (idx i64[Nq, k] local
+    train rows, dist f32[Nq, k] euclidean, mask bool[Nq, k]).  `tile` is
+    the JAX package's train tile; it shapes only the plain 1-NN's query
+    chunks here.  bf16: the dot products from bfloat16-rounded rows, the
+    norms from the float32 rows (matchers.py:93-107).  exclude_ids
+    (i64[Nq]) with id_offset: same-set k-NN where `train` is a shard of the
+    query set (its rows from id_offset on); a train row is left out for
+    query q when id_offset + its local id == exclude_ids[q].  exclude_diag
+    is the unsharded case (exclude_ids = the query rows, id_offset 0)."""
+    if exclude_diag:
+        exclude_ids = torch.arange(query.shape[0], device=query.device)
+    if k == 1 and exclude_ids is None:
         idx, dist, mask = nn_l2(query, train, qvalid, tvalid, tile=tile, bf16=bf16)
         return idx[:, None], dist[:, None], mask[:, None]
-    best_d, best_i = _topk_l2(query, train, tvalid, k, exclude_diag, bf16)
+    best_d, best_i = _topk_l2(query, train, tvalid, k, exclude_ids, int(id_offset), bf16)
     mask = (best_d < BIG) & qvalid[:, None]
     dist = torch.where(mask, best_d, BIG).clamp_min(0.0).sqrt()
     return torch.where(mask, best_i, 0), dist, mask

@@ -1,7 +1,7 @@
 """Batched registration of many scan pairs (lidar_global_registration_tpu/parallel).
 
-The JAX package shards the pair batch over a ('dp', 'tp') device mesh.  On
-one GPU the dp axis is a loop over the pairs and tp = 1: batch.py.  The
-mesh (parallel/mesh.py) and the tp row sharding of a pair exist only across
-several devices and have no counterpart here.
+mesh.py: the ('dp', 'tp') device mesh over the processes of a
+torch.distributed group, and the one collective the step uses.  batch.py:
+the batch step, its pairs split over dp and each pair's rows and its
+matcher's train side over tp; without a mesh, a loop of the single-pair step.
 """

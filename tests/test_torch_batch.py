@@ -67,8 +67,8 @@ def batch():
 def port_batch(batch):
     t = {k: torch.from_numpy(batch[k].copy()) for k in ("src", "tgt", "valid", "scalars", "vps")}
     cfg = tfl.config_from_jax(jfl.FlagshipConfig(**CFG).__dict__)
-    out = make_register_batch(cfg)(t["src"], t["valid"], t["tgt"], t["valid"], SEEDS,
-                                   t["scalars"], t["vps"])
+    out = make_register_batch(None, cfg)(t["src"], t["valid"], t["tgt"], t["valid"], SEEDS,
+                                         t["scalars"], t["vps"])
     return t, cfg, out
 
 
@@ -86,13 +86,13 @@ def test_each_pair_equals_the_single_pair_step(port_batch):
         assert torch.equal(T[i], o["transformation"])
         assert torch.equal(inl[i], o["inliers"]) and torch.equal(nc[i], o["n_correspondences"])
     gens = [torch.Generator().manual_seed(s) for s in SEEDS]
-    T2, inl2, nc2 = make_register_batch(cfg)(t["src"][:1], t["valid"][:1], t["tgt"][:1],
-                                             t["valid"][:1], gens[:1], t["scalars"][:1],
-                                             t["vps"][:1])
+    T2, inl2, nc2 = make_register_batch(None, cfg)(t["src"][:1], t["valid"][:1],
+                                                   t["tgt"][:1], t["valid"][:1], gens[:1],
+                                                   t["scalars"][:1], t["vps"][:1])
     assert torch.equal(T2[0], T[0]) and torch.equal(inl2[0], inl[0])
     with pytest.raises(ValueError, match="one seed"):
-        make_register_batch(cfg)(t["src"], t["valid"], t["tgt"], t["valid"], SEEDS[:1],
-                                 t["scalars"], t["vps"])
+        make_register_batch(None, cfg)(t["src"], t["valid"], t["tgt"], t["valid"],
+                                       SEEDS[:1], t["scalars"], t["vps"])
 
 
 def test_port_and_jax_batches_find_every_pose(batch, port_batch):
