@@ -1732,6 +1732,8 @@ WRAPPER_OF = {
     "spfh_host": "spfh_cuda",
     **{f"iss_{k}_at_{s}": f"iss_{k}_at_cuda" for k in ("count", "saliency", "nms")
        for s in ("1m", "64k")},
+    "spfh_at_tp": "spfh_at_cuda",
+    **dict.fromkeys(("nn_l2_tp_shard0", "nn_l2_tp_shard1"), "nn_l2_cuda"),
 }
 # every kernel wrapper of the port (each its own launch counter), as the
 # CLI's `# device` line lists them
@@ -2378,8 +2380,8 @@ MESH_NEED = {"iss": AT_FORMS + ("spfh_at_cuda", "nn_l2_cuda"),
 def mesh_batches(mesh, dev, inp: dict, label: str) -> dict:
     """Each configuration's batch over `mesh` on the pairs of `inp`: a
     warm-up of one pair, then the 4 pairs with every counter set to 0 just
-    before and read just after.  Returns {config: T, inliers, n_corr (on
-    the CPU), seconds a pair, launches}."""
+    before and read just after; first iss_split_ms.  Returns {config: T,
+    inliers, n_corr (on the CPU), seconds a pair, launches} and iss_ms."""
     import torch
     import torch.distributed as dist
 
@@ -2388,7 +2390,8 @@ def mesh_batches(mesh, dev, inp: dict, label: str) -> dict:
     src, valid, tgt, scalars, vps = (inp[k].to(dev) for k in ("src", "valid", "tgt", "scalars",
                                                                "vps"))
     seeds = inp["seeds"]
-    out = {}
+    out = {"iss_ms": iss_split_ms(mesh.get_group("tp"), dev, inp)}
+    log(f"# mesh {label} ISS of one side: {out['iss_ms']}")
     for name, cfg in mesh_cfgs().items():
         step = make_register_batch(mesh, cfg)
         step(src[:1], valid[:1], tgt[:1], valid[:1], seeds[:1], scalars[:1], vps[:1])  # warm-up
@@ -2470,8 +2473,9 @@ def run_ranks(world: int, d: Path) -> list[dict]:
 
 
 def at_records(plan, r_iss: float, suffix: str) -> list[dict]:
-    """K2-K4's slot-list forms on one plan at each half of its input rows:
-    against the full forms' rows at those slots (bit for bit: the tp step
+    """K2-K4's slot-list forms on one plan at each half of its input rows
+    (their slots ascending, as cellgrid.iss_pass launches them): against
+    the full forms' rows at those slots (bit for bit: the tp step
     rests on it) and against the slot-list plain versions (K2 and K4 exact,
     K3 within saliency_err's bounds); each record's times and bound are the
     mean over the two halves' launches."""
@@ -2482,7 +2486,7 @@ def at_records(plan, r_iss: float, suffix: str) -> list[dict]:
     r2 = cg._f32_square(r_iss)
     N = plan.order.shape[0]
     slot = cg.slot_of(plan)
-    halves = [slot[:N // 2][slot[:N // 2] >= 0], slot[N // 2:][slot[N // 2:] >= 0]]
+    halves = [torch.sort(h[h >= 0]).values for h in (slot[:N // 2], slot[N // 2:])]
     c_f, inv_f = cg.iss_count_cuda(plan, r2)
     s_f, ok_f, nb_f = cg.iss_saliency_cuda(plan, r2, inv_f, 0.975, 0.975)
     kp_f = cg.iss_nms_cuda(plan, r2, s_f, ok_f, 4)
@@ -2543,11 +2547,109 @@ def at_records(plan, r_iss: float, suffix: str) -> list[dict]:
     return records
 
 
+def shard_records(src, tgt, valid, scalars, vps) -> list[dict]:
+    """The tp = 2 step's K5 and K7 launches on the 64k pair (src, tgt) at
+    their own shapes, against their plain versions: K5's slot-list form at
+    each half's slots of the feature-radius plan (as ops/fpfh.spfh_rows
+    launches it: equal pair counts, the full pass's rows, bin-edge moves
+    only against the plain version) and K7 from the keypoint-any features,
+    65,536 queries against each 32,768-row train shard (equal indices and
+    distances).  K5's times and bound are the mean over the two halves."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.models import flagship as fl
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.ops import fpfh
+
+    normal_cell, _ds, _dt, iss_s, iss_t, fr, _thr = fl._radii(*scalars.tolist())
+    cfg = mesh_cfgs()["any"]
+    N = src.shape[0]
+    halves = (slice(0, N // 2), slice(N // 2, N))
+    normals, feats = [], []
+    for xyz, iss_r, vp in ((src, iss_s, vps[0]), (tgt, iss_t, vps[1])):
+        normal, kp, _dens = fl._side_stage(xyz, valid, normal_cell, iss_r, cfg, vp)
+        normals.append(normal)
+        feats.append(fl._fpfh_fixed(xyz, normal, valid, kp, fr))
+    plan = fpfh.surface_plan(src, valid, normals[0], fr)
+    r2, cen = cg._f32_square(fr), cg.aabb_centre(plan)
+    s_full, c_full = cg.spfh_cuda(plan, r2, cen)
+    slot = cg.slot_of(plan)
+    acc = dict(ms=[], plain_ms=[], bound=[], err=[], queries=[])
+    for h in halves:
+        sl = torch.sort(slot[h][slot[h] >= 0]).values
+        s_k, c_k = cg.spfh_at_cuda(plan, r2, cen, sl)
+        assert torch.equal(c_k[sl], c_full[sl]) and torch.equal(s_k[sl], s_full[sl]), (
+            "K5 at (tp half) != its full pass")
+        (s_p, c_p), p_ms = timed_once(lambda: cg.spfh_plain(plan, r2, cen, sl))
+        assert torch.equal(c_k, c_p), "K5 at (tp half): pair counts differ"
+        f5 = frac_off(s_k[sl], s_p[sl])
+        assert f5 < 1e-3, f"K5 at (tp half): {f5:.2e} off by > 0.5"
+        acc["ms"].append(cuda_ms(lambda: cg.spfh_at_cuda(plan, r2, cen, sl), 5))
+        acc["plain_ms"].append(p_ms)
+        acc["err"].append(float((s_k - s_p).abs().max()))
+        acc["queries"].append(int(sl.numel()))
+        acc["bound"].append(stencil_bound("spfh", plan, c_p[sl].sum(), tbytes(
+            plan.pts, plan.nrm, plan.cell_of, plan.cols, sl) + sl.numel() * 4 * 34, sl))
+    records = [dict(
+        name="spfh_at_tp", route="cuda", source="lidar_global_registration_tpu_torch/csrc/fpfh.cu",
+        replaces="lidar_global_registration_tpu/ops/pallas/cellgrid.py:1554",
+        max_abs_err=max(acc["err"]), queries=acc["queries"], ms=float(np.mean(acc["ms"])),
+        ms_halves=acc["ms"], plain_ms=float(np.mean(acc["plain_ms"])),
+        bound_ms=float(np.mean([x["bound_ms"] for x in acc["bound"]])),
+        bound_by=acc["bound"][0]["bound_by"], library_ms=None)]
+    log(f"# K5 spfh_at_tp ok: halves of {N} rows ({acc['queries']} slots) = the full pass's "
+        f"rows, {records[0]['ms']:.4f} ms (bound {records[0]['bound_ms']:.4f})")
+    (fq, fqv), (ft, ftv) = feats
+    for i, h in enumerate(halves):
+        records.append(nn_record(f"nn_l2_tp_shard{i}", fq, ft[h].contiguous(), ftv[h]))
+    return records
+
+
+def iss_split_ms(group, dev, inp: dict) -> dict:
+    """One side's ISS keypoints (the batch's first source cloud, its ISS
+    radius) as this peer of `group` computes them in the tp step
+    (cellgrid.iss_pass at its rows: the slot-list forms and the gathers),
+    against the full forms over the whole cloud on this peer alone: the
+    same keypoints and saliency; the median ms of 5 after a warm-up, the
+    peers set off together, the plan built once outside."""
+    import torch
+    import torch.distributed as dist
+
+    from lidar_global_registration_tpu_torch.ops import cellgrid as cg
+    from lidar_global_registration_tpu_torch.parallel.mesh import gather_rows
+
+    xyz, valid = inp["src"][0].to(dev), inp["valid"][0].to(dev)
+    r = float(inp["scalars"][0, 3])
+    plan = cg.plan_grid(xyz, valid, r)
+    tp, ti = dist.get_world_size(group), dist.get_rank(group)
+    shard = xyz.shape[0] // tp
+    rows = slice(ti * shard, (ti + 1) * shard)
+    forms = {"full_ms": lambda: cg.iss_pass(plan, r),
+             "split_ms": lambda: cg.iss_pass(plan, r, rows=rows,
+                                             gather=lambda x: gather_rows(x, group))}
+    want, got = forms["full_ms"](), forms["split_ms"]()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), "ISS at the tp rows != full"
+    out = {}
+    for name, fn in forms.items():
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(ts))
+    return out
+
+
 def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dict]:
     """The ('dp', 'tp') batch step on the card: K2-K4's slot-list forms
     checked at each half of two plans (the 1M graded scan's preprocessed
     rows on the host path's ISS plan, `host_plan` = (plan, r_iss), and the
-    bench's 65,536-point pair on its ISS plan); then batch_phase's four
+    bench's 65,536-point pair on its ISS plan), and the tp step's K5 and K7
+    launches at their shapes on that pair (shard_records); then
+    batch_phase's four
     pairs through make_register_batch(make_mesh(2, tp=2)), two ranks on this
     card over gloo, and through make_register_batch(make_mesh(1, tp=1)) on
     NCCL at world size 1 in this process, each with mesh_cfgs(): every pair
@@ -2555,8 +2657,8 @@ def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dic
     each rank's counters set to 0 before its batch and risen after it (K2-K4
     and K5 at the shard's rows and K7 for ISS, K5 and K7 for keypoint-any,
     no other form).  Prints the seconds a pair of tp = 2, tp = 1 and the
-    one-process loop (make_register_batch(None, cfg)).  Returns the slot-list
-    records and each run's launches."""
+    one-process loop (make_register_batch(None, cfg)), and iss_split_ms of
+    each rank.  Returns the kernel records and each run's launches."""
     import datetime
 
     import torch
@@ -2576,6 +2678,7 @@ def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dic
     inp = dict(src=src.cpu(), valid=valid.cpu(), tgt=tgt.cpu(), scalars=scalars.cpu(),
                vps=vps.cpu(), seeds=seeds)
     torch.save(inp, MESH_DIR / "batch.pt")
+    records += shard_records(src[0], tgt[0], valid[0], scalars[0], vps[0])
     ref, loop_s = {}, {}
     for name, cfg in mesh_cfgs().items():
         ref[name] = [fl.register_pair_step(src[i], valid[i], tgt[i], valid[i],
@@ -2591,8 +2694,9 @@ def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dic
     runs = {f"tp2_rank{r}": res for r, res in enumerate(run_ranks(2, MESH_DIR))}
     log(f"# mesh tp=2: two ranks on one card over gloo, {time.perf_counter() - t0:.1f} s "
         f"with their start-up")
-    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR / 'store_nccl'}",
-                            world_size=1, rank=0,
+    store = MESH_DIR / "store_nccl"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0,
                             timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
     try:
         runs["tp1_nccl"] = mesh_batches(make_mesh(1, tp=1), dev, inp, "tp=1 nccl")
@@ -2600,7 +2704,8 @@ def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dic
         dist.destroy_process_group()
     launches = {}
     for run, res in runs.items():
-        for name, got in res.items():
+        for name in mesh_cfgs():
+            got = res[name]
             check_counts(f"mesh {run} {name}", got["launches"], MESH_NEED[name])
             launches[f"mesh_{run}_{name}"] = dict(launches=got["launches"])
             for i, o in enumerate(ref[name]):
@@ -2622,10 +2727,17 @@ def mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan) -> tuple[list, dic
             f"{runs['tp2_rank1'][name]['seconds_per_pair']:.4f}, tp=1 (nccl) "
             f"{runs['tp1_nccl'][name]['seconds_per_pair']:.4f}, one-process loop "
             f"{loop_s[name]:.4f}")
-    for rec in records:
+    log(f"# mesh ISS of one side, ms on {gpu}: full forms on the whole cloud / slot-list forms "
+        f"at the peer's rows with the gathers: tp=2 (gloo, two ranks on one card) "
+        + ", ".join(f"rank {r} {runs[f'tp2_rank{r}']['iss_ms']['full_ms']:.4f} / "
+                    f"{runs[f'tp2_rank{r}']['iss_ms']['split_ms']:.4f}" for r in range(2))
+        + f"; tp=1 (nccl) {runs['tp1_nccl']['iss_ms']['full_ms']:.4f} / "
+        f"{runs['tp1_nccl']['iss_ms']['split_ms']:.4f}")
+    for rec in records:  # each form's launches in both configurations' batches
         form = WRAPPER_OF[rec["name"]]
-        rec["launches"] = sum(runs[f"tp2_rank{r}"]["iss"]["launches"][form] for r in range(2))
-        rec["launches_tp1"] = runs["tp1_nccl"]["iss"]["launches"][form]
+        rec["launches"] = sum(runs[f"tp2_rank{r}"][name]["launches"][form]
+                              for r in range(2) for name in mesh_cfgs())
+        rec["launches_tp1"] = sum(runs["tp1_nccl"][name]["launches"][form] for name in mesh_cfgs())
     return records, launches
 
 

@@ -18,7 +18,7 @@
 // Each kernel has a slot-list form (kAt = true, the `_at` entry points) for
 // a tp peer of parallel/batch.py, which owns a shard of the input rows: they
 // land scattered over the plan's slots.  Thread t takes slots[t] (ascending,
-// so a warp's queries still share cells) and writes output row rows[t]; K3
+// so a warp's queries still share cells) and writes output row t; K3
 // and K4 read the whole cloud's K2 weights and K3 saliencies, gathered from
 // the peers.  The per-query body is the full form's, so a slot's outputs are
 // the full pass's bit for bit.
@@ -51,12 +51,11 @@ constexpr int kThreads = 128;
 template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_count_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
-                     const int2* __restrict__ cols, const int* __restrict__ slots,
-                     const int* __restrict__ rows, int n, float r2, int* __restrict__ count,
-                     float* __restrict__ inv) {
+                     const int2* __restrict__ cols, const int* __restrict__ slots, int n,
+                     float r2, int* __restrict__ count, float* __restrict__ inv) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const int i = kAt ? slots[t] : t, o = kAt ? rows[t] : t;
+  const int i = kAt ? slots[t] : t;
   const float4 q = pts[i];
   int c = 0;
   lgr::walk_stencil(cols, cell_of[i], [&](int j) {
@@ -64,8 +63,8 @@ __global__ void __launch_bounds__(kThreads)
     const float dx = p.x - q.x, dy = p.y - q.y, dz = p.z - q.z;
     if (dx * dx + dy * dy + dz * dz <= r2) ++c;  // self included (d2 = 0)
   });
-  count[o] = c;
-  inv[o] = 1.f / fmaxf(static_cast<float>(c), 1.f);  // the IEEE float32 quotient
+  count[t] = c;
+  inv[t] = 1.f / fmaxf(static_cast<float>(c), 1.f);  // the IEEE float32 quotient
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -94,12 +93,11 @@ template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_saliency_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
                         const int2* __restrict__ cols, const float* __restrict__ inv,
-                        const int* __restrict__ slots, const int* __restrict__ rows, int n,
-                        float r2, float gamma21, float gamma32, float* __restrict__ sal,
+                        const int* __restrict__ slots, int n, float r2, float gamma21, float gamma32, float* __restrict__ sal,
                         unsigned char* __restrict__ ok, int* __restrict__ nnb) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const int i = kAt ? slots[t] : t, o = kAt ? rows[t] : t;
+  const int i = kAt ? slots[t] : t;
   const float4 q = pts[i];
   float ws = 0.f, sxx = 0.f, sxy = 0.f, sxz = 0.f, syy = 0.f, syz = 0.f, szz = 0.f;
   int nb = 0;
@@ -131,9 +129,9 @@ __global__ void __launch_bounds__(kThreads)
                      szz / wsafe, l3, l2, l1, vx, vy, vz);
   const bool good = ws > 0.f && l2 / fmaxf(l1, 1e-30f) < gamma21 &&
                     l3 / fmaxf(l2, 1e-30f) < gamma32 && l3 > 0.f;
-  sal[o] = good ? l3 : 0.f;
-  ok[o] = good ? 1 : 0;
-  nnb[o] = nb;
+  sal[t] = good ? l3 : 0.f;
+  ok[t] = good ? 1 : 0;
+  nnb[t] = nb;
 }
 
 // K4.  kp = ok && nb >= min_nb && s > max over the neighbours' sal, which
@@ -154,18 +152,18 @@ template <bool kAt>
 __global__ void __launch_bounds__(kThreads)
     iss_nms_kernel(const float4* __restrict__ pts, const int* __restrict__ cell_of,
                    const int2* __restrict__ cols, const float* __restrict__ sal,
-                   const unsigned char* __restrict__ ok, const int* __restrict__ slots,
-                   const int* __restrict__ rows, int n, float r2, int min_nb,
+                   const unsigned char* __restrict__ ok, const int* __restrict__ slots, int n,
+                   float r2, int min_nb,
                    const lgr::NearGrid grid, unsigned char* __restrict__ kp) {
   using Order = lgr::NearOrder<true>;
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = t >= n ? 0 : kAt ? slots[t] : t, o = t >= n ? 0 : kAt ? rows[t] : t;
+  const int i = t >= n ? 0 : kAt ? slots[t] : t;
   float s = 0.f;
   float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
   int cell = 0;
   unsigned todo = 0;
-  bool open = t < n && ok[o];  // only queries that passed K3 can be keypoints
+  bool open = t < n && ok[t];  // only queries that passed K3 can be keypoints
   if (open) {
     s = sal[i];
     open = s > -lgr::kBig;
@@ -240,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lane == owner) key = !blocked && nb + cnt >= min_nb;
   }
-  if (t < n) kp[o] = key ? 1 : 0;
+  if (t < n) kp[t] = key ? 1 : 0;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -253,23 +251,22 @@ extern "C" int lgr_iss_count(const void* pts, const void* cell_of, const void* c
                              float r2, void* count, void* inv, void* stream) {
   iss_count_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), nullptr, nullptr, n, r2, static_cast<int*>(count),
+      static_cast<const int2*>(cols), nullptr, n, r2, static_cast<int*>(count),
       static_cast<float*>(inv));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The slot-list forms: thread t takes the sorted query slots[t] and writes
-// output row rows[t] of m rows; the per-query body is the full form's, so a
+// output row t of m rows; the per-query body is the full form's, so a
 // slot's outputs are bit-equal to the full pass's at that slot.  slots
 // ascending (by cell, as the full pass runs) keeps a warp's walks together.
 extern "C" int lgr_iss_count_at(const void* pts, const void* cell_of, const void* cols,
-                                const void* slots, const void* rows, int m, float r2,
-                                void* count, void* inv, void* stream) {
+                                const void* slots, int m, float r2, void* count, void* inv,
+                                void* stream) {
   iss_count_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const int*>(slots),
-      static_cast<const int*>(rows), m, r2, static_cast<int*>(count),
-      static_cast<float*>(inv));
+      static_cast<const int2*>(cols), static_cast<const int*>(slots), m, r2,
+      static_cast<int*>(count), static_cast<float*>(inv));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,7 +277,7 @@ extern "C" int lgr_iss_saliency(const void* pts, const void* cell_of, const void
                                 float gamma32, void* sal, void* ok, void* nnb, void* stream) {
   iss_saliency_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
-      static_cast<const int2*>(cols), static_cast<const float*>(inv), nullptr, nullptr, n, r2,
+      static_cast<const int2*>(cols), static_cast<const float*>(inv), nullptr, n, r2,
       gamma21, gamma32, static_cast<float*>(sal), static_cast<unsigned char*>(ok),
       static_cast<int*>(nnb));
   return static_cast<int>(cudaGetLastError());
@@ -289,13 +286,12 @@ extern "C" int lgr_iss_saliency(const void* pts, const void* cell_of, const void
 // inv f32[n]: every sorted point's weight (the whole cloud's); sal, ok, nnb
 // [m] at the output rows.
 extern "C" int lgr_iss_saliency_at(const void* pts, const void* cell_of, const void* cols,
-                                   const void* inv, const void* slots, const void* rows, int m,
-                                   float r2, float gamma21, float gamma32, void* sal, void* ok,
+                                   const void* inv, const void* slots, int m, float r2, float gamma21, float gamma32, void* sal, void* ok,
                                    void* nnb, void* stream) {
   iss_saliency_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
       static_cast<const int2*>(cols), static_cast<const float*>(inv),
-      static_cast<const int*>(slots), static_cast<const int*>(rows), m, r2, gamma21, gamma32,
+      static_cast<const int*>(slots), m, r2, gamma21, gamma32,
       static_cast<float*>(sal), static_cast<unsigned char*>(ok), static_cast<int*>(nnb));
   return static_cast<int>(cudaGetLastError());
 }
@@ -308,7 +304,7 @@ extern "C" int lgr_iss_nms(const void* pts, const void* cell_of, const void* col
   iss_nms_kernel<false><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
       static_cast<const int2*>(cols), static_cast<const float*>(sal),
-      static_cast<const unsigned char*>(ok), nullptr, nullptr, n, r2, min_nb,
+      static_cast<const unsigned char*>(ok), nullptr, n, r2, min_nb,
       lgr::near_grid(origin, cell, r2), static_cast<unsigned char*>(kp));
   return static_cast<int>(cudaGetLastError());
 }
@@ -316,14 +312,14 @@ extern "C" int lgr_iss_nms(const void* pts, const void* cell_of, const void* col
 // sal f32[n]: every sorted point's saliency (the whole cloud's); ok bool[m]
 // and kp bool[m] at the output rows.
 extern "C" int lgr_iss_nms_at(const void* pts, const void* cell_of, const void* cols,
-                              const void* sal, const void* ok, const void* slots,
-                              const void* rows, int m, float r2, int min_nb, const void* origin,
-                              double cell, void* kp, void* stream) {
+                              const void* sal, const void* ok, const void* slots, int m,
+                              float r2, int min_nb, const void* origin, double cell, void* kp,
+                              void* stream) {
   iss_nms_kernel<true><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int*>(cell_of),
       static_cast<const int2*>(cols), static_cast<const float*>(sal),
-      static_cast<const unsigned char*>(ok), static_cast<const int*>(slots),
-      static_cast<const int*>(rows), m, r2, min_nb, lgr::near_grid(origin, cell, r2),
+      static_cast<const unsigned char*>(ok), static_cast<const int*>(slots), m, r2, min_nb,
+      lgr::near_grid(origin, cell, r2),
       static_cast<unsigned char*>(kp));
   return static_cast<int>(cudaGetLastError());
 }

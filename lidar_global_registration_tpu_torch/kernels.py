@@ -46,10 +46,10 @@ SIGNATURES = {
     "lgr_iss_saliency": (_P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
     # pts, cell_of, cols, sal, ok, n, r2, min_nb, origin, cell, kp, stream
     "lgr_iss_nms": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _D, _P, _P),
-    # the slot-list forms: the same with slots, rows (i32[m]) and m in place of n
-    "lgr_iss_count_at": (_P, _P, _P, _P, _P, _I, _F, _P, _P, _P),
-    "lgr_iss_saliency_at": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
-    "lgr_iss_nms_at": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _D, _P, _P),
+    # the slot-list forms: the same with slots (i32[m]) and m in place of n
+    "lgr_iss_count_at": (_P, _P, _P, _P, _I, _F, _P, _P, _P),
+    "lgr_iss_saliency_at": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P),
+    "lgr_iss_nms_at": (_P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _D, _P, _P),
     # ctr, nrm, cell_of, cols, slots (or 0), items, n_items, r2, spfh, cnt,
     # stream
     "lgr_spfh": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P),

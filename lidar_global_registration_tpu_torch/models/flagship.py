@@ -568,8 +568,22 @@ def _density_from_knn(idx, dist, mask, valid, gather_rows=None):
     return torch.where(valid & has & (out < BIG), out, 0.0)
 
 
+def _widen(idx, dist, mask, gather):
+    """Neighbour lists [rows, K] of a shard padded (0, BIG, False) to the
+    widest of the peers' K (gather: parallel/batch.py's), the width the
+    whole cloud's query gives them, so each row's float32 sums run over the
+    one-process step's blocks."""
+    k = idx.shape[1]
+    width = int(gather(torch.tensor([k], device=idx.device)).max())
+    if width == k:
+        return idx, dist, mask
+    pad = (idx.shape[0], width - k)
+    return (torch.cat([idx, idx.new_zeros(pad)], 1), torch.cat([dist, dist.new_full(pad, BIG)], 1),
+            torch.cat([mask, mask.new_zeros(pad)], 1))
+
+
 def _side_stage(xyz, valid, normal_cell: float, iss_radius: float, cfg: FlagshipConfig,
-                viewpoint=None):
+                viewpoint=None, rows: slice | None = None, gather=None):
     """One side's normals, keypoints and density off the cell kernels'
     fused pass (flagship._side_stage): the _NORMAL_K nearest points within
     the normal cell (ops/grid.radius_neighbors, exact; the JAX package keeps
@@ -577,19 +591,31 @@ def _side_stage(xyz, valid, normal_cell: float, iss_radius: float, cfg: Flagship
     viewpoint, the k = 2 density from the same lists, and the ISS keypoints
     (use_iss: K2-K4 on a plan at the ISS radius, every neighbour within it;
     the JAX package takes iss_neighbors within neighbor_cap a cell) or every
-    valid row.  Returns (normal f32[N, 3], kp bool[N], density f32[N])."""
+    valid row.  Returns (normal f32[N, 3], kp bool[N], density f32[N]).
+
+    rows, gather: a tp peer's share (parallel/batch.py): the products of
+    input rows `rows` only, ISS through cellgrid.iss_pass's slot-list
+    forms, and gather (a shard's per-row values -> the whole cloud's, in
+    row order) returns the whole cloud's, the one-process step's bit for
+    bit."""
     plan = cellgrid.plan_grid(xyz, valid, normal_cell)
-    idx, dist, mask = radius_neighbors(plan, xyz, valid, float(normal_cell), _NORMAL_K)
-    normal = torch.zeros_like(xyz)
-    for a in range(0, xyz.shape[0], _NORMAL_ROWS):
+    xyz_l, valid_l = (xyz, valid) if rows is None else (xyz[rows], valid[rows])
+    idx, dist, mask = radius_neighbors(plan, xyz_l, valid_l, float(normal_cell), _NORMAL_K)
+    if gather is not None:
+        idx, dist, mask = _widen(idx, dist, mask, gather)
+    normal = torch.zeros_like(xyz_l)
+    for a in range(0, xyz_l.shape[0], _NORMAL_ROWS):
         b = a + _NORMAL_ROWS
-        normal[a:b] = normals_from_neighbors(xyz[a:b], xyz, idx[a:b], mask[a:b], viewpoint)[0]
-    density = _density_from_knn(idx, dist, mask, valid)
+        normal[a:b] = normals_from_neighbors(xyz_l[a:b], xyz, idx[a:b], mask[a:b], viewpoint)[0]
+    density = _density_from_knn(idx, dist, mask, valid_l, gather_rows=gather)
     if cfg.use_iss:
-        kp = cellgrid.iss_pass(cellgrid.plan_grid(xyz, valid, iss_radius), iss_radius)[0]
+        kp = cellgrid.iss_pass(cellgrid.plan_grid(xyz, valid, iss_radius), iss_radius,
+                               rows=rows, gather=gather)[0]
     else:
         kp = valid
-    return normal, kp, density
+    if gather is None:
+        return normal, kp, density
+    return gather(normal), kp, gather(density)
 
 
 def _fpfh_fixed(xyz, normal, valid, kp, radius: float):

@@ -575,8 +575,10 @@ def _nms_rows(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
 
 
 # The slot-list forms of K2-K4 (the `_at` functions): only the sorted
-# queries `slots` (i64[m], any order, no padding) are computed, and each
-# output row m belongs to the slot at that position.  K3 and K4 read the
+# queries `slots` (i64[m], no padding) are computed, and output row t
+# belongs to slots[t].  Any order is right; ascending (by cell) keeps the
+# kernels' warps on shared cells, and iss_pass sorts its list once for the
+# three passes.  K3 and K4 read the
 # whole cloud's K2 weights and K3 saliencies at the neighbours (a tp peer
 # gathers them from the others), so a slot's outputs equal the full pass's
 # at that slot bit for bit.
@@ -733,10 +735,10 @@ def iss_count_at_cuda(plan: GridPlan, r2: float, slots: torch.Tensor):
     if m == 0:
         return count, inv
     _check_plan(plan)
-    srt, rows = combine_order(slots.to(torch.int32))
+    sl = slots.to(torch.int32).contiguous()
     kernels.launch("lgr_iss_count_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-                   plan.cols.data_ptr(), srt.data_ptr(), rows.data_ptr(), m, r2,
-                   count.data_ptr(), inv.data_ptr(), _stream(plan))
+                   plan.cols.data_ptr(), sl.data_ptr(), m, r2, count.data_ptr(),
+                   inv.data_ptr(), _stream(plan))
     iss_count_at_cuda.launches += 1
     return count, inv
 
@@ -757,11 +759,10 @@ def iss_saliency_at_cuda(plan: GridPlan, r2: float, inv: torch.Tensor, gamma21: 
         return sal, okq, nnb
     _check_plan(plan)
     kernels.check(inv, torch.float32, (plan.n_valid,), "inv")
-    srt, rows = combine_order(slots.to(torch.int32))
+    sl = slots.to(torch.int32).contiguous()
     kernels.launch("lgr_iss_saliency_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-                   plan.cols.data_ptr(), inv.data_ptr(), srt.data_ptr(), rows.data_ptr(), m,
-                   r2, gamma21, gamma32, sal.data_ptr(), okq.data_ptr(), nnb.data_ptr(),
-                   _stream(plan))
+                   plan.cols.data_ptr(), inv.data_ptr(), sl.data_ptr(), m, r2, gamma21,
+                   gamma32, sal.data_ptr(), okq.data_ptr(), nnb.data_ptr(), _stream(plan))
     iss_saliency_at_cuda.launches += 1
     return sal, okq, nnb
 
@@ -781,11 +782,11 @@ def iss_nms_at_cuda(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Ten
     kernels.check(sal, torch.float32, (plan.n_valid,), "sal")
     kernels.check(okq, torch.bool, (m,), "ok")
     kernels.check(plan.origin, torch.float64, (3,), "origin")
-    srt, rows = combine_order(slots.to(torch.int32))
+    sl = slots.to(torch.int32).contiguous()
     kernels.launch("lgr_iss_nms_at", plan.pts.data_ptr(), plan.cell_of.data_ptr(),
-                   plan.cols.data_ptr(), sal.data_ptr(), okq.data_ptr(), srt.data_ptr(),
-                   rows.data_ptr(), m, r2, int(min_neighbors), plan.origin.data_ptr(),
-                   plan.cell, kp.data_ptr(), _stream(plan))
+                   plan.cols.data_ptr(), sal.data_ptr(), okq.data_ptr(), sl.data_ptr(), m, r2,
+                   int(min_neighbors), plan.origin.data_ptr(), plan.cell, kp.data_ptr(),
+                   _stream(plan))
     iss_nms_at_cuda.launches += 1
     return kp
 
@@ -814,14 +815,23 @@ def iss_nms_at(plan: GridPlan, r2: float, sal: torch.Tensor, okq: torch.Tensor,
 
 
 def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
-             gamma32: float = 0.975, min_neighbors: int = 4):
+             gamma32: float = 0.975, min_neighbors: int = 4, rows: slice | None = None,
+             gather=None):
     """ISS keypoints on a plan (cellgrid.iss_pass: the ISS half of
     _surface_iss_impl, cellgrid.py:1706-1727): K2 counts, K3 saliency, K4
     non-maximum suppression, each a pass over the plan (every pass needs
     its predecessor's result at every candidate).  The kernels on CUDA,
     the plain versions on CPU.  Returns (kp bool[N], saliency f32[N]) in
-    input order, False / 0 at invalid rows."""
+    input order, False / 0 at invalid rows.
+
+    rows, gather: a tp peer's share (parallel/batch.py).  K2-K4's slot-list
+    forms run at the slots of input rows `rows` only, sorted once, and
+    gather (a shard's per-row values -> the whole cloud's, in row order)
+    gives each pass the whole cloud's result of the one before; the
+    outputs are the whole cloud's, the full passes' bit for bit."""
     r2 = _f32_square(iss_radius)
+    if rows is not None:
+        return _iss_pass_at(plan, r2, gamma21, gamma32, min_neighbors, rows, gather)
     if plan.pts.is_cuda:
         _count, inv = iss_count_cuda(plan, r2)
         sal, okq, _nnb = iss_saliency_cuda(plan, r2, inv, gamma21, gamma32)
@@ -831,6 +841,28 @@ def iss_pass(plan: GridPlan, iss_radius: float, gamma21: float = 0.975,
         sal, okq, _nnb = iss_saliency_plain(plan, r2, inv, gamma21, gamma32)
         kp = iss_nms_plain(plan, r2, sal, okq, min_neighbors)
     return _unsort(plan, kp, fill=False) & plan.valid, _unsort(plan, sal)
+
+
+def _iss_pass_at(plan: GridPlan, r2: float, gamma21: float, gamma32: float, min_neighbors: int,
+                 rows: slice, gather):
+    """iss_pass at the input rows `rows` through K2-K4's slot-list forms."""
+    slot = slot_of(plan)[rows]
+    live = torch.nonzero(slot >= 0).squeeze(1)
+    sl, perm = torch.sort(slot[live])  # the launch order of all three passes
+    at = live[perm]  # the shard row of each slot
+    by_slot = plan.order[:plan.n_valid]
+
+    def shard(v):  # values at sl -> the shard's rows
+        out = v.new_zeros(slot.shape)
+        out[at] = v
+        return out
+
+    _count, inv = iss_count_at(plan, r2, sl)
+    sal, okq, _nnb = iss_saliency_at(plan, r2, gather(shard(inv))[by_slot], gamma21, gamma32,
+                                     sl)
+    sal_rows = gather(shard(sal))
+    kp = iss_nms_at(plan, r2, sal_rows[by_slot], okq, min_neighbors, sl)
+    return gather(shard(kp)) & plan.valid, sal_rows
 
 
 def radius_counts(xyz: torch.Tensor, valid: torch.Tensor, radius: float) -> torch.Tensor:
@@ -1061,7 +1093,7 @@ def combine_plain(plan: GridPlan, r2: float, spfh: torch.Tensor, slots=None):
 
 
 def combine_order(slots: torch.Tensor):
-    """The launch order of a slot list (K6 and the K2-K4 slot-list forms):
+    """The launch order of a slot list (K6):
     (slots i32[M] ascending, i.e. by cell, padding first; rows i32[M], the
     output row of each).  A stable sort, so repeats keep their order;
     neighbouring warps then walk neighbouring cells and share their rows in

@@ -6,13 +6,14 @@ each pair the rows over tp (_pair_step_tp): every peer holds the whole
 pair (the plans are cheap and every query needs the whole neighbour
 structure) and computes the products of its shard of rows, N / tp of them:
 
-  normals + density  the exact radius query of the shard's rows, then
-                     their PCA normals; the density's smoothing neighbour
-                     may lie on another shard, so it reads the gathered
-                     raw distances (flagship._density_from_knn)
-  ISS                K2, K3 and K4's slot-list forms at the shard's plan
-                     slots (ops/cellgrid.iss_*_at), each pass reading the
-                     whole cloud's result of the one before, gathered
+  normals + density  flagship._side_stage at the shard's rows: the exact
+                     radius query of the rows, then their PCA normals; the
+                     density's smoothing neighbour may lie on another
+                     shard, so it reads the gathered raw distances
+  ISS                cellgrid.iss_pass at the shard's rows: K2, K3 and K4's
+                     slot-list forms at the rows' plan slots, each pass
+                     reading the whole cloud's result of the one before,
+                     gathered
   FPFH               K5's slot-list form at the shard's rows, the whole
                      SPFH table gathered, the float32 combine at the
                      shard's keypoints (ops/fpfh); or SHOT at them
@@ -27,10 +28,12 @@ whole-cloud arrays of the one-process step (models/flagship
 .register_pair_step).  The neighbour lists of a shard are padded to the
 widest row of the whole cloud (the most any peer's rows have), the width
 the one-process query gives them, so each row's float32 sums run over the
-same blocks: the FPFH step is the one-process step bit for bit.  SHOT's
-blocks are not padded so, and its rows may differ from the step's in the
-last bits.  make_register_batch(None, cfg) is a loop of register_pair_step
-in one process.
+same blocks: the FPFH step is the one-process step bit for bit, but for
+the cluster gate's keypoint kNN where float32 distances tie exactly across
+its k-th place (match_bf_tp).  SHOT's blocks are not padded so, and its
+rows may differ from the step's in the last bits.
+make_register_batch(None, cfg) is a loop of register_pair_step in one
+process.
 """
 from __future__ import annotations
 
@@ -40,12 +43,8 @@ import torch
 import torch.distributed as dist
 
 from lidar_global_registration_tpu_torch.models import flagship as fl
-from lidar_global_registration_tpu_torch.ops import cellgrid, fpfh, matchers
-from lidar_global_registration_tpu_torch.ops.grid import radius_neighbors
-from lidar_global_registration_tpu_torch.ops.normals import normals_from_neighbors
+from lidar_global_registration_tpu_torch.ops import fpfh, matchers
 from lidar_global_registration_tpu_torch.parallel.mesh import gather_rows, pair_sharding
-
-BIG = 3.0e38
 
 
 def match_bf_tp(fq, ft_shard, fq_valid, ft_valid_shard, k: int, tile: int, bf16: bool, group,
@@ -56,7 +55,10 @@ def match_bf_tp(fq, ft_shard, fq_valid, ft_valid_shard, k: int, tile: int, bf16:
     nearest kept, ties to the lowest global index (K7's rule).
     exclude_self: same-set k-NN, a train row left out for the query whose
     row is its global id.  Returns match_bf's (idx i64[Nq, k] global rows,
-    dist, mask)."""
+    dist, mask).  At k = 1 without exclude_self (K7 on each shard) this is
+    the one-process match_bf bit for bit; otherwise so except where float32
+    d2 ties exactly across the k-th place, which the one-process path's
+    torch.topk keeps in an unspecified order."""
     offset = dist.get_rank(group) * ft_shard.shape[0]
     exclude = torch.arange(fq.shape[0], device=fq.device) if exclude_self else None
     idx, d, m = matchers.match_bf(fq, ft_shard, fq_valid, ft_valid_shard, k=k, tile=tile,
@@ -74,62 +76,7 @@ def match_bf_tp(fq, ft_shard, fq_valid, ft_valid_shard, k: int, tile: int, bf16:
     return torch.where(out_m, all_i.gather(1, order), 0), all_d.gather(1, order), out_m
 
 
-def _widen(idx, dist_, mask, group):
-    """Neighbour lists [rows, K] padded (0, BIG, False) to the widest of
-    the peers' K: the width the whole cloud's query has."""
-    k = idx.shape[1]
-    width = int(gather_rows(torch.tensor([k], device=idx.device), group).max())
-    if width == k:
-        return idx, dist_, mask
-    pad = (idx.shape[0], width - k)
-    return (torch.cat([idx, idx.new_zeros(pad)], 1),
-            torch.cat([dist_, dist_.new_full(pad, BIG)], 1),
-            torch.cat([mask, mask.new_zeros(pad)], 1))
-
-
-def _iss_rows(xyz, valid, iss_radius: float, rows: slice, gather):
-    """iss_pass's keypoints with K2-K4 at the shard's rows: each pass's
-    result of the shard's rows is gathered into the whole cloud's, by
-    sorted slot, for the next pass to read at the neighbours."""
-    plan = cellgrid.plan_grid(xyz, valid, iss_radius)
-    r2 = cellgrid._f32_square(iss_radius)
-    slot = cellgrid.slot_of(plan)[rows]
-    live = slot >= 0
-    sl = slot[live]
-    by_slot = plan.order[:plan.n_valid]
-
-    def whole(v_live):  # the shard's values -> every sorted slot's
-        v = v_live.new_zeros(slot.shape)
-        v[live] = v_live
-        return gather(v)[by_slot]
-
-    _count, inv = cellgrid.iss_count_at(plan, r2, sl)
-    sal, okq, _nb = cellgrid.iss_saliency_at(plan, r2, whole(inv), 0.975, 0.975, sl)
-    kp = cellgrid.iss_nms_at(plan, r2, whole(sal), okq, 4, sl)
-    kp_rows = torch.zeros(slot.shape, dtype=torch.bool, device=xyz.device)
-    kp_rows[live] = kp
-    return gather(kp_rows) & valid
-
-
-def _side_rows(xyz, valid, normal_cell: float, iss_radius: float, cfg, viewpoint, rows: slice,
-               gather, group):
-    """flagship._side_stage at the shard's rows; returns its whole-cloud
-    (normal, kp, density)."""
-    xyz_l, valid_l = xyz[rows], valid[rows]
-    plan = cellgrid.plan_grid(xyz, valid, normal_cell)
-    idx, dist_, mask = _widen(*radius_neighbors(plan, xyz_l, valid_l, float(normal_cell),
-                                                fl._NORMAL_K), group)
-    normal_l = torch.zeros_like(xyz_l)
-    for a in range(0, xyz_l.shape[0], fl._NORMAL_ROWS):
-        b = a + fl._NORMAL_ROWS
-        normal_l[a:b] = normals_from_neighbors(xyz_l[a:b], xyz, idx[a:b], mask[a:b],
-                                               viewpoint)[0]
-    density = gather(fl._density_from_knn(idx, dist_, mask, valid_l, gather_rows=gather))
-    kp = _iss_rows(xyz, valid, iss_radius, rows, gather) if cfg.use_iss else valid
-    return gather(normal_l), kp, density
-
-
-def _fpfh_rows(xyz, normal, valid, kp, radius: float, rows: slice, gather, group):
+def _fpfh_rows(xyz, normal, valid, kp, radius: float, rows: slice, gather):
     """flagship._fpfh_fixed at the shard's rows: K5 there, the SPFH table
     gathered, the combine at the shard's keypoints.  Returns the whole
     cloud's (feat f32[N, 33], valid bool[N])."""
@@ -139,7 +86,7 @@ def _fpfh_rows(xyz, normal, valid, kp, radius: float, rows: slice, gather, group
     kpv_l = (valid & kp)[rows]
     kr = torch.nonzero(kpv_l).squeeze(1)
     g = kr + rows.start
-    kidx, kdist, kmask = _widen(*fpfh.keypoint_neighbors(plan, xyz[g], radius), group)
+    kidx, kdist, kmask = fl._widen(*fpfh.keypoint_neighbors(plan, xyz[g], radius), gather)
     feat_k, kcnt_k = fpfh.combine_at(xyz[g], normal[g], xyz, normal, spfh_all, kidx, kdist,
                                      kmask)
     feat = torch.zeros((shard.shape[0], fpfh.DIM), dtype=torch.float32, device=xyz.device)
@@ -172,14 +119,14 @@ def _pair_step_tp(src_xyz, src_valid, tgt_xyz, tgt_valid, generator: torch.Gener
     sides = []
     for xyz, valid, iss_r, vp in ((src_xyz, src_valid, iss_src, vp_src),
                                   (tgt_xyz, tgt_valid, iss_tgt, vp_tgt)):
-        normal, kp, dens = _side_rows(xyz, valid, normal_cell, iss_r, cfg, vp, rows, gather,
-                                      group)
+        normal, kp, dens = fl._side_stage(xyz, valid, normal_cell, iss_r, cfg, vp, rows=rows,
+                                          gather=gather)
         if cfg.descriptor == "shot":
             feat_l, fv_l = fl._shot_stage(xyz[rows], normal[rows], (valid & kp)[rows], xyz,
                                           normal, valid, feature_radius, cfg)
             feat, fv = gather(feat_l), gather(fv_l)
         else:
-            feat, fv = _fpfh_rows(xyz, normal, valid, kp, feature_radius, rows, gather, group)
+            feat, fv = _fpfh_rows(xyz, normal, valid, kp, feature_radius, rows, gather)
         sides.append((feat, fv, dens))
     (fq, fqv, dens_s), (ft, ftv, dens_t) = sides
 

@@ -288,6 +288,102 @@ def test_iss_slot_forms_equal_the_full_passes(monkeypatch, which):
         assert torch.equal(got, want[slots])
 
 
+def _peers(tp: int, fn):
+    """fn(rows, gather) on tp threads, one a tp peer: rows its shard of
+    _iss_cloud's 6,000 rows (as the tp step splits them), gather the peers'
+    values concatenated in rank order (barrier-synchronised, as
+    parallel/mesh.gather_rows).  Returns each peer's result; a peer that
+    raises fails the call (the others' barrier breaks, no hang)."""
+    import threading
+
+    bar = threading.Barrier(tp, timeout=60)
+    box, out, err = [None] * tp, [None] * tp, []
+    shard = 6000 // tp
+
+    def run(ti):
+        def gather(x):
+            box[ti] = x
+            bar.wait()
+            whole = torch.cat(box)
+            bar.wait()
+            return whole
+        try:
+            out[ti] = fn(slice(ti * shard, (ti + 1) * shard), gather)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            err.append(e)
+            bar.abort()
+
+    threads = [threading.Thread(target=run, args=(ti,)) for ti in range(tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads), "a peer hung"
+    if err:
+        raise err[0]
+    return out
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3])
+def test_iss_pass_at_rows_equals_the_full_pass(monkeypatch, tp):
+    """cellgrid.iss_pass at each peer's rows (K2-K4's slot-list forms, each
+    pass reading the gathered result of the one before) returns on every
+    peer the full pass's keypoints and saliency, torch.equal, on a plan of
+    many chunks."""
+    monkeypatch.setattr(cg, "_CHUNK_PAIRS", 1 << 14)
+    x, valid, _g = _iss_cloud()
+    plan = cg.plan_grid(x, valid, 0.25)
+    kp, sal = cg.iss_pass(plan, 0.25)
+    assert 0 < int(kp.sum()) < int(valid.sum())
+    for got in _peers(tp, lambda rows, gather: cg.iss_pass(plan, 0.25, rows=rows,
+                                                           gather=gather)):
+        assert torch.equal(got[0], kp) and torch.equal(got[1], sal)
+
+
+@pytest.mark.parametrize("use_iss", [True, False])
+@pytest.mark.parametrize("tp", [2, 3])
+def test_side_stage_at_rows_equals_the_full_stage(tp, use_iss):
+    """flagship._side_stage at each peer's rows (its neighbour lists
+    widened to the peers' widest, the density's smoothing neighbour read
+    from the gathered distances, ISS through iss_pass at the rows) returns
+    on every peer the one-process stage's normals, keypoints and density,
+    torch.equal."""
+    x, valid, _g = _iss_cloud()
+    cfg = tfl.FlagshipConfig(use_iss=use_iss)
+    vp = torch.tensor([2.0, 2.0, 5.0])
+    want = tfl._side_stage(x, valid, 0.15, 0.25, cfg, vp)
+    for got in _peers(tp, lambda rows, gather: tfl._side_stage(x, valid, 0.15, 0.25, cfg, vp,
+                                                               rows=rows, gather=gather)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("offset", [0, 150])
+def test_match_bf_k1_ties_go_to_the_lowest_index(offset):
+    """On descriptors with many exact ties (small integers), match_bf's
+    k = 1 path on a train shard (K7's plain version, the offset added after)
+    keeps the nearest row with ties to the lowest index, as JAX's match_bf
+    does: the indices equal JAX's and the lowest of each query's nearest."""
+    import jax.numpy as jnp
+
+    from lidar_global_registration_tpu.ops.matchers import match_bf as jax_match_bf
+
+    rng = np.random.default_rng(567)
+    q = rng.integers(0, 3, size=(300, 4)).astype(np.float32)
+    qv = np.ones(300, bool)
+    shard = slice(offset, offset + 150)
+    ji, _jd, jm = (np.asarray(a) for a in jax_match_bf(
+        jnp.asarray(q), jnp.asarray(q[shard]), jnp.asarray(qv), jnp.asarray(qv[shard]), k=1,
+        tile=128, id_offset=offset))
+    ti, _td, tm = (a.numpy() for a in match_bf(
+        torch.from_numpy(q), torch.from_numpy(q[shard]), torch.from_numpy(qv),
+        torch.from_numpy(qv[shard]), k=1, tile=128, id_offset=offset))
+    d2 = ((q[:, None] - q[None, shard]) ** 2).sum(-1)
+    assert ((d2 == d2.min(1, keepdims=True)).sum(1) > 1).sum() > 100  # full of ties
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(ti[:, 0], d2.argmin(1))
+    np.testing.assert_array_equal(ji, ti)
+
+
 def test_spfh_at_rows_equals_the_full_table():
     """ops/fpfh.spfh_rows at input rows (K5's slot-list form over their
     slots, invalid rows 0) equals the full pass's table at those rows."""
