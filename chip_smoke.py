@@ -2919,6 +2919,82 @@ def save_features_check(d: Path, fr: float, loaded, written: dict) -> None:
                 assert np.array_equal(got[:, 0].astype(np.int64), want), path.name
 
 
+def lone_runs(label: str, cloud, voxel: float) -> None:
+    """voxel_downsample of `cloud` (on the card) at `voxel` on the card and on
+    the CPU: every voxel of one point must be torch.equal on both (xyz,
+    normal, weight) and its xyz equal to (x * w) / w in float32 of its input
+    row, the JAX package's arithmetic.  Prints the counts of lone rows and of
+    those that differ from their input point, and the device ms of the
+    centroids with the packed routes' arithmetic for a lone row and with
+    the segment-sum route's (voxel_downsample's), in turns: packed, segment
+    sum, segment sum, packed."""
+    import torch
+
+    from lidar_global_registration_tpu_torch.ops.downsample import (
+        _centroids,
+        masked_min,
+        voxel_centroids_map,
+        voxel_downsample,
+    )
+    from lidar_global_registration_tpu_torch.types import Cloud
+
+    cpu = Cloud(*(getattr(cloud, f).cpu() for f in ("xyz", "normal", "weight", "curvature",
+                                                    "valid")))
+    card = voxel_downsample(cloud, voxel)
+    host = voxel_downsample(cpu, voxel)
+    origin = masked_min(cloud.xyz, cloud.valid) - 0.5 * torch.tensor(
+        voxel, dtype=torch.float32, device=cloud.xyz.device)
+    ms = {True: [], False: []}
+    for packed in (True, False, False, True):
+        ms[packed].append(cuda_ms(lambda: _centroids(
+            cloud.xyz, cloud.valid, voxel, origin, cloud.weight, cloud.normal,
+            packed=packed), 5))
+    _x, _v, row_of, n = voxel_centroids_map(cpu.xyz, cpu.valid, voxel)
+    rows = torch.nonzero(cpu.valid).squeeze(1)
+    runs = torch.bincount(row_of[rows], minlength=int(n))
+    lone_in = rows[runs[row_of[rows]] == 1]  # input rows alone in their voxel
+    lone = row_of[lone_in]
+    assert int(n) == int(host.valid.sum()) == int(card.valid.sum())
+    for f in ("xyz", "normal", "weight"):
+        got, want = getattr(card, f).cpu()[lone], getattr(host, f)[lone]
+        assert torch.equal(got, want), f"{label}: lone {f} differ card / CPU"
+    x, w = cpu.xyz[lone_in].numpy(), cpu.weight[lone_in].numpy()[:, None]
+    assert np.array_equal(card.xyz.cpu()[lone].numpy(), (x * w) / w), label
+    moved = int(np.any(card.xyz.cpu()[lone].numpy() != x, axis=1).sum())
+    weights = np.unique(w)
+    log(f"# lone runs {label}: voxel {voxel:.6g}, {int(rows.shape[0])} rows -> {int(n)} voxels, "
+        f"{int(lone.shape[0])} lone, {moved} of them not their input point (weights "
+        f"{weights.min():g}-{weights.max():g}); card == CPU == (x * w) / w; centroids ms "
+        f"with a lone row's packed / segment-sum arithmetic {ms[True][0]:.4f} "
+        f"{ms[False][0]:.4f} {ms[False][1]:.4f} {ms[True][1]:.4f}")
+    assert lone.shape[0] > 0, f"{label}: no voxel of one point"
+
+
+def lone_run_check(d: Path, dev, loaded, fr: float) -> None:
+    """The lone-voxel rows of the loader's downsample of the 1M graded scan
+    (unit weights, the loader's voxel) and of one host level's
+    voxel_downsample of the loaded source (accumulated counts), the first
+    level of radius 2^k <= fr whose voxel is below the source's spacing."""
+    import math
+
+    from lidar_global_registration_tpu_torch.models.pipeline import cloud_from_ply
+    from lidar_global_registration_tpu_torch.ops.density import cloud_density
+    from lidar_global_registration_tpu_torch.types import (
+        FEATURE_NR_POINTS,
+        FINE_VOXEL_SIZE_COEFFICIENT,
+    )
+
+    raw, _names = cloud_from_ply(str(d / "scanA.ply"), dev)
+    lone_runs("loader 1m", raw, FINE_VOXEL_SIZE_COEFFICIENT * cloud_density(raw.xyz, raw.valid))
+    del raw
+    src, ds = loaded[0], loaded[2]
+    r = 2.0 ** math.floor(math.log2(fr))
+    while math.sqrt(math.pi * r * r / FEATURE_NR_POINTS) >= ds:
+        r /= 2
+    lone_runs(f"host level r={r:g} (spacing {ds:.6g})", src,
+              math.sqrt(math.pi * r * r / FEATURE_NR_POINTS))
+
+
 def cli_phase(dev):
     """The port's command line on the graded bench pair, as a user runs it
     (`python -m lidar_global_registration_tpu_torch`, one process a
@@ -2979,6 +3055,7 @@ def cli_phase(dev):
                 launches.update(debug_launches)
                 got, r_iss, loaded = host_captures(d, fr, dev)
                 save_features_check(d, fr, loaded, written)
+                lone_run_check(d, dev, loaded, fr)
                 host = host_records(got, r_iss)
                 host_plan = (got["iss_count_cuda"][0], r_iss)
                 del got

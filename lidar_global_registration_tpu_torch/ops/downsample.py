@@ -15,7 +15,13 @@ Coordinates are summed as residuals against each voxel's base corner, as
 the packed JAX route does, so the centroid's rounding stays near
 ulp(voxel) whatever the scene's extent.  The residual sums accumulate in
 float64 (the CUDA `index_add_` adds atomically in no fixed order; in
-float64 the order does not show after the cast back to float32).
+float64 the order does not show after the cast back to float32).  A voxel
+of one point takes the arithmetic of the JAX route its caller mirrors, the
+same bits on the CPU and the card: (x * w) / w in voxel_downsample (the
+segment-sum route), corner + (x - corner) in voxel_centroids_packed and
+voxel_centroids_map (the packed routes, which the JAX staged path runs for
+its feature-scale maps whenever the caller gives the scene's bounds, as the
+CLI does).
 
 voxel_downsample (the loader's fine downsample, downsample.py:288-352) is
 the same body with each point weighted by its accumulated weight and the
@@ -45,16 +51,52 @@ def masked_min(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(lo < _BIG, lo, 0.0)
 
 
+def _fma32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x * y + z of float32 tensors rounded once to float32, as a fused
+    multiply-add rounds: the product is exact in float64, and the float64
+    sum is rounded to odd (its error from a TwoSum), so that the cast rounds
+    as the exact sum would.  The same bits on the CPU and the card."""
+    p = x.to(torch.float64) * y.to(torch.float64)
+    z = z.to(torch.float64)
+    s = p + z
+    b = s - p
+    err = (p - (s - b)) + (z - b)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    odd = torch.where((err != 0) & (bits & 1 == 0), bits + step, bits)
+    return odd.view(torch.float64).to(torch.float32)
+
+
+def _lone_normal(n: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """JAX's renormalised weighted mean normal of one point, as XLA runs
+    voxel_downsample on the CPU: (n * w) / (w * |(n * w) / w|), the squared
+    norm a chain of fused multiply-adds (x0 x0, then + x1 x1, then + x2 x2)
+    and the two divisions fused into one (A / B / C -> A / (B * C))."""
+    nw = n * w
+    m0, m1, m2 = (nw / w).unbind(1)
+    nn = _fma32(m2, m2, _fma32(m1, m1, m0 * m0)).sqrt()[:, None]
+    return nw / (w * torch.where(nn < 1e-5, 1.0, nn))
+
+
 def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
                origin: torch.Tensor, weight: torch.Tensor | None = None,
-               normal: torch.Tensor | None = None):
+               normal: torch.Tensor | None = None, packed: bool = False):
     """Shared body: (out_xyz f32[N, 3] front-compacted centroids (0.0 on
     the rows past them), out_valid bool[N], row_of i64[N] output row of
     each valid input row (0 elsewhere), n_out i64[] on the device, acc):
     nothing here reads the device from the host.  With `weight` f32[N]
     (positive on valid rows) each point counts by its weight, and acc =
-    (summed weight f32[N], weighted mean normal f32[N, 3] or None when no
-    `normal` is given); without it points count 1 and acc is None."""
+    (summed weight f32[N], weighted mean normal f32[N, 3] renormalised, or
+    None when no `normal` is given); without it points count 1 and acc is
+    None.
+
+    A run of one valid row takes the JAX segment-sum route's arithmetic for
+    it in float32 unless `packed`: xyz (x * w) / w, w its weight (1 without
+    weights: the point itself), and the normal of _lone_normal; the summed
+    weight is w either way.  One term has no summation order, so the CPU
+    and the card give the same bits.  With `packed` it keeps the residual
+    form, corner + (x - corner), which is the JAX packed routes' arithmetic
+    for one point."""
     dev = xyz.device
     N = xyz.shape[0]
     vox = torch.tensor(voxel, dtype=torch.float32, device=dev)
@@ -85,6 +127,21 @@ def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
     base_run[seg] = base  # every member of a run writes the same corner
     out_valid = torch.arange(N, device=dev) < n_out
     cent = base_run + (sums / cnt.clamp_min(1e-30)[:, None]).to(torch.float32)
+    if not packed:
+        # one-point runs from the run boundaries (the invalid rows' run sorts
+        # last and stays padding); every member of a longer run writes False
+        last = torch.ones_like(first)
+        last[:-1] = first[1:]
+        lone_run = torch.zeros((N, 1), dtype=torch.bool, device=dev)
+        lone_run[seg, 0] = first & last & svalid
+
+        def put(one: torch.Tensor, run: torch.Tensor) -> torch.Tensor:
+            out = torch.empty_like(run)
+            out[seg] = one  # read only at one-point runs, which have one writer
+            return torch.where(lone_run, out, run)
+
+        w32 = None if weight is None else weight[order][:, None]
+        cent = put(xyz[order] if w32 is None else (xyz[order] * w32) / w32, cent)
     out_xyz = torch.where(out_valid[:, None], cent, 0.0)
     row_of = torch.zeros((N,), dtype=torch.int64, device=dev)
     row_of[order] = torch.where(svalid, seg, 0)
@@ -95,6 +152,11 @@ def _centroids(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
             nsum = torch.zeros((N, 3), dtype=torch.float64, device=dev).index_add_(
                 0, seg, normal[order].to(torch.float64) * w[:, None])
             nrm = (nsum / cnt.clamp_min(1e-30)[:, None]).to(torch.float32)
+            # renormalised unless the norm is below 1e-5 (downsample.h:21-24)
+            nn = nrm.square().sum(1, keepdim=True).sqrt()
+            nrm = nrm / torch.where(nn < 1e-5, 1.0, nn)
+            if not packed:
+                nrm = put(_lone_normal(normal[order], w32), nrm)
         acc = (cnt.to(torch.float32), nrm)
     return out_xyz, out_valid, row_of, n_out, acc
 
@@ -103,11 +165,13 @@ def voxel_centroids_map(xyz: torch.Tensor, valid: torch.Tensor, voxel: float):
     """Voxel centroids with an input-row -> output-row map
     (downsample.voxel_centroids_map and voxel_centroids_map_packed, which
     give the same partition, order and map).  The grid anchors at the
-    cloud's own min - voxel / 2 in float32.  Returns (out_xyz f32[N, 3],
-    out_valid bool[N], row_of i64[N], n_out i64[] on the device); rows
-    past the n_out centroids hold 0.0."""
+    cloud's own min - voxel / 2 in float32.  A voxel of one point takes
+    voxel_centroids_map_packed's arithmetic, corner + (x - corner): the JAX
+    staged path runs that route whenever it is given the scene's bounds.
+    Returns (out_xyz f32[N, 3], out_valid bool[N], row_of i64[N], n_out
+    i64[] on the device); rows past the n_out centroids hold 0.0."""
     vox = torch.tensor(voxel, dtype=torch.float32, device=xyz.device)
-    return _centroids(xyz, valid, voxel, masked_min(xyz, valid) - 0.5 * vox)[:4]
+    return _centroids(xyz, valid, voxel, masked_min(xyz, valid) - 0.5 * vox, packed=True)[:4]
 
 
 def voxel_centroids_packed(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
@@ -115,9 +179,12 @@ def voxel_centroids_packed(xyz: torch.Tensor, valid: torch.Tensor, voxel: float,
     """Voxel centroids on a grid anchored at the caller's `origin` f32[3]
     (downsample.voxel_centroids_packed; the JAX function leaves its rows at
     each run's first sorted slot for flagship._compact_xyz to compact, this
-    one returns them compacted already).  Returns (out_xyz, out_valid,
-    n_out) as voxel_centroids_map."""
-    out_xyz, out_valid, _row_of, n_out, _acc = _centroids(xyz, valid, voxel, origin)
+    one returns them compacted already).  A voxel of one point keeps that
+    route's arithmetic, corner + (x - corner) in float32, which can move
+    the point by an ulp where the corner lies below half of it.  Returns
+    (out_xyz, out_valid, n_out) as voxel_centroids_map."""
+    out_xyz, out_valid, _row_of, n_out, _acc = _centroids(xyz, valid, voxel, origin,
+                                                          packed=True)
     return out_xyz, out_valid, n_out
 
 
@@ -133,8 +200,6 @@ def voxel_downsample(cloud: Cloud, voxel: float) -> Cloud:
     origin = masked_min(cloud.xyz, cloud.valid) - 0.5 * vox
     out_xyz, out_valid, _row_of, _n, (acc_w, nrm) = _centroids(
         cloud.xyz, cloud.valid, voxel, origin, cloud.weight, cloud.normal)
-    nn = nrm.square().sum(1, keepdim=True).sqrt()
-    nrm = nrm / torch.where(nn < 1e-5, 1.0, nn)
     v = out_valid[:, None]
     return Cloud(xyz=torch.where(v, out_xyz, Cloud.PAD_COORD), normal=torch.where(v, nrm, 0.0),
                  weight=torch.where(out_valid, acc_w, 0.0),

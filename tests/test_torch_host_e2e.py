@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from lidar_global_registration_tpu import cli as jcli
 from lidar_global_registration_tpu import types as jtypes
 from lidar_global_registration_tpu.analysis import AlignmentAnalysis
 from lidar_global_registration_tpu.models import pipeline as jpipe
@@ -123,26 +124,43 @@ CLI_CONFIG = ("source: scanA.ply\ntarget: scanB.ply\nground_truth: ground_truth.
               "alignment: [ransac, gror]\n")
 
 
+def _cli_rows(main, d, **kw):
+    """`alignment` of CLI_CONFIG through one package's CLI in directory d,
+    on the pair of tests/test_torch_cli.py; (log, header line, result rows)."""
+    d.mkdir()
+    make_scan_pair(str(d))
+    (d / "config.yaml").write_text(CLI_CONFIG)
+    log = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(log):
+        mp.chdir(d)
+        main(["alignment", "config.yaml"], **kw)
+    lines = (d / "data/debug/test_results.csv").read_text().strip().splitlines()
+    return log.getvalue(), lines[0], [dict(zip(lines[0].split(","), ln.split(",")))
+                                      for ln in lines[1:]]
+
+
 def test_cli_runs_a_set_outside_the_envelope(tmp_path, monkeypatch):
     """`alignment` on the 16,000-point terrain pair of tests/test_torch_cli.py
-    with one_sided matching (outside the staged envelope), RANSAC and GROR:
-    both rows converge within 3 degrees and one unit, under the JAX
+    with one_sided matching (outside the staged envelope), RANSAC and GROR,
+    through the port's CLI and the JAX package's on identical copies of the
+    files: both of the port's rows converge within 3 degrees, RANSAC within
+    one unit, GROR within one unit or JAX's own GROR t_err on these files
+    where that is larger (JAX's misses one unit here: 1.207), under the JAX
     package's 38-column header, with the setting columns the JAX package
     writes for these parameters; `metric` then re-scores their caches."""
-    make_scan_pair(str(tmp_path))
-    (tmp_path / "config.yaml").write_text(CLI_CONFIG)
+    log, header, rows = _cli_rows(tcli.main, tmp_path / "port", device="cpu")
+    _jlog, _jheader, jrows = _cli_rows(jcli.main, tmp_path / "jax")
+    tmp_path = tmp_path / "port"
     monkeypatch.chdir(tmp_path)
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        tcli.main(["alignment", "config.yaml"], device="cpu")
-    assert log.getvalue().count("host pyramid path used") == 2
-    lines = (tmp_path / "data/debug/test_results.csv").read_text().strip().splitlines()
-    assert lines[0] == AlignmentAnalysis.HEADER.strip() and len(lines[0].split(",")) == 38
-    rows = [dict(zip(lines[0].split(","), ln.split(","))) for ln in lines[1:]]
+    assert log.count("host pyramid path used") == 2
+    assert header == AlignmentAnalysis.HEADER.strip() and len(header.split(",")) == 38
     assert [r["alignment_type"] for r in rows] == ["ransac", "gror"]
+    assert [r["alignment_type"] for r in jrows] == ["ransac", "gror"]
+    bound = dict(ransac=1.0, gror=max(1.0, float(jrows[1]["t_err"])))
     for r in rows:
         assert r["converged"] == "1" and float(r["r_err"]) < np.deg2rad(3.0), r
-        assert float(r["t_err"]) < 1.0 and float(r["time_cs"]) > 0, r
+        assert float(r["t_err"]) < bound[r["alignment_type"]] and float(r["time_cs"]) > 0, (
+            r, jrows)
         want = dict(version="15", descriptor="fpfh", testname="scanA_scanB", nr_points="352",
                     edge_thr="0.95", matching_type="one_sided", randomness="1",
                     lrf_type="default", metric_type="correspondences", keypoint_type="any",

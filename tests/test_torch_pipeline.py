@@ -27,7 +27,6 @@ from lidar_global_registration_tpu.utils import config as jconfig
 from lidar_global_registration_tpu_torch import types as ttypes
 from lidar_global_registration_tpu_torch.models import flagship as tfl
 from lidar_global_registration_tpu_torch.models import pipeline as tpipe
-from lidar_global_registration_tpu_torch.ops import downsample as tds
 from lidar_global_registration_tpu_torch.ops.transform import rotation_translation_error
 from lidar_global_registration_tpu_torch.utils import config as tconfig
 from test_torch_analysis import max_bucket
@@ -306,8 +305,9 @@ def test_outside_the_envelope_raises(case, item, capsys, tmp_path, monkeypatch):
     (histograms_src / _tgt.csv at a fixed radius): the same index column,
     the values within the host FPFH tolerance of
     tests/test_torch_host_ops.py::test_fpfh_matches_jax (0.15 at most, 0.005
-    on average, of 100 a block), on a surface patch (_patch_clouds), but at
-    the rows whose keypoint is a lone point's centroid an ulp off (counted)."""
+    on average, of 100 a block), on a surface patch (_patch_clouds), at
+    every row: a voxel of one point is JAX's own row
+    (tests/test_torch_downsample.py::test_lone_voxel_is_the_jax_row)."""
     src, tgt = _patch_clouds() if case.get("save_features") else _tiny_clouds()
     _cfg, reason = tpipe.staged_envelope(_params(ttypes, **case))
     line = f"# staged TPU path unavailable ({reason}); host pyramid path used"
@@ -331,27 +331,18 @@ def test_outside_the_envelope_raises(case, item, capsys, tmp_path, monkeypatch):
         assert [n.split("_352_")[0] for n in sorted(features["port"])] == [
             "_histograms_src", "_histograms_tgt"]
         # the level's surface (radius 2 = 2^floor(log2 3), voxel sqrt(pi 2^2 / 352)):
-        # under JAX's FPFH caps (128 points a cell, 384 neighbours); rows whose
-        # keypoint the port's surface holds an ulp off (a lone point's centroid,
-        # ROADMAP Queue 3) are left out: the port's combine counts that row as a
-        # neighbour, JAX's excludes it as the keypoint itself
+        # under JAX's FPFH caps (128 points a cell, 384 neighbours)
         x = src.xyz.numpy()[src.valid.numpy()]
         voxel = float(np.sqrt(np.pi * 4.0 / 352))
         js = jds.voxel_downsample(jtypes.Cloud.from_numpy(x), voxel)
         sj = np.asarray(js.xyz)[np.asarray(js.valid)]
         assert max_bucket(sj, 2.0) <= 128
         assert (((sj[None] - sj[:, None]) ** 2).sum(-1) <= 4.0).sum(1).max() <= 384
-        ts = tds.voxel_downsample(src, voxel)
-        st = ts.xyz[ts.valid].numpy()
-        near = np.sqrt(((x[:, None] - st[None]) ** 2).sum(-1)).min(1)
-        lone = (near > 0) & (near < 1e-5)
-        assert lone.sum() <= 0.02 * len(x)  # measured: 11 of 900
         for name, t in features["port"].items():
             j = features["jax"][name]
             assert t.shape == j.shape and t.shape[0] > 20 and t.shape[1] == 34
             np.testing.assert_array_equal(t[:, 0], j[:, 0])
-            keep = ~lone[t[:, 0].astype(np.int64)]
-            diff = np.abs(t[keep, 1:] - j[keep, 1:])
+            diff = np.abs(t[:, 1:] - j[:, 1:])
             assert diff.max() < 0.15 and diff.mean() < 0.005, (diff.max(), diff.mean())
     else:
         assert not features["port"] and not features["jax"]

@@ -1,23 +1,30 @@
-"""Measure the lone-voxel centroid fault (ROADMAP Queue 3 item 2) and three
-repairs on the two 16,000-point CLI scenarios whose fixed-bound tests move.
+"""Measure the lone-voxel centroid fault (ROADMAP Queue 3 item 2, closed)
+and its repairs on the two 16,000-point CLI scenarios whose fixed-bound
+tests move.
 
-    JAX_PLATFORMS=cpu python tests/torch_lone_centroid_probe.py   # ~5 min, 5 processes
+    JAX_PLATFORMS=cpu python tests/torch_lone_centroid_probe.py   # a few minutes, 6 processes
 
-Forms of ops/downsample._centroids (each applied to the port's outputs, so
-only the centroids and the summed weights differ):
-  as_is  the port as it stands (residuals rounded to float32, float64 sums);
-  f64    (1) the residual against the voxel corner in float64, the corner
-         added back in float64;
-  lone   (2) a one-point run returns its point;
-  f32    (3) per-run float32 sums of xyz * w, w and normal * w over the
-         sorted rows, as JAX's segment_sum runs on the CPU;
+Forms of ops/downsample._centroids (each applied to the outputs of the
+residual form, so only the centroids, the normals and the summed weights
+differ):
+  residual  the port before the repair: every run's residuals rounded to
+            float32, summed in float64, the corner added in float32 (the
+            module's packed=True);
+  jax_lone  the port as it is: a one-point run takes the arithmetic of the
+            JAX route its caller mirrors, (x * w) / w in voxel_downsample,
+            the residual form in the two packed-route forms;
+  f64       (1) the residual against the voxel corner in float64, the corner
+            added back in float64;
+  lone      (2) a one-point run returns its point;
+  f32       (3) per-run float32 sums of xyz * w, w and normal * w over the
+            sorted rows, as JAX's segment_sum runs on the CPU;
 and the JAX package itself (jax).  Scenarios: `cli`, the config of
 tests/test_torch_cli.py (`lr`, RANSAC; its test_results_rows_match_jax holds
 the correspondences within 5 % of JAX's), and `host`, the config of
 tests/test_torch_host_e2e.py::test_cli_runs_a_set_outside_the_envelope
-(`one_sided`, RANSAC and GROR, each t_err < 1).  Prints each run's result
-rows and, per scenario, how many correspondences of each form are not in
-JAX's set (by position, to 1e-3).  Not a test: pytest does not collect it.
+(`one_sided`, RANSAC and GROR).  Prints each run's result rows and, per
+scenario, how many correspondences of each form are not in JAX's set (by
+position, to 1e-3).  Not a test: pytest does not collect it.
 """
 import contextlib
 import glob
@@ -31,20 +38,23 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-FORMS = ("as_is", "f64", "lone", "f32", "jax")
+FORMS = ("residual", "jax_lone", "f64", "lone", "f32", "jax")
 COLS = ("alignment_type", "converged", "r_err", "t_err", "correspondences", "inliers")
 
 
 def _patched(form: str):
-    """_centroids of `form`, from the port's own outputs and row map."""
+    """_centroids of `form`, from the residual form's outputs and row map."""
     import torch
 
     from lidar_global_registration_tpu_torch.ops import downsample
 
     base_fn = downsample._centroids
 
-    def centroids(xyz, valid, voxel, origin, weight=None, normal=None):
-        out_xyz, out_valid, row_of, n_out, acc = base_fn(xyz, valid, voxel, origin, weight, normal)
+    def centroids(xyz, valid, voxel, origin, weight=None, normal=None, packed=False):
+        if form == "jax_lone":
+            return base_fn(xyz, valid, voxel, origin, weight, normal, packed)
+        out_xyz, out_valid, row_of, n_out, acc = base_fn(xyz, valid, voxel, origin, weight,
+                                                         normal, packed=True)
         N = xyz.shape[0]
         rows = torch.nonzero(valid).squeeze(1)  # in input order: each run's sorted order
         r = row_of[rows]
@@ -75,7 +85,11 @@ def _patched(form: str):
             out_xyz = torch.where(out_valid[:, None],
                                   sums[:, :3] / sums[:, 3:4].clamp_min(1e-30), 0.0)
             if weight is not None:
-                nrm = sums[:, 4:] / sums[:, 3:4].clamp_min(1e-30) if normal is not None else None
+                nrm = None
+                if normal is not None:  # renormalised, as _centroids returns it
+                    nrm = sums[:, 4:] / sums[:, 3:4].clamp_min(1e-30)
+                    nn = nrm.square().sum(1, keepdim=True).sqrt()
+                    nrm = nrm / torch.where(nn < 1e-5, 1.0, nn)
                 acc = (sums[:, 3], nrm)
         return out_xyz, out_valid, row_of, n_out, acc
 
@@ -109,8 +123,7 @@ def run(form: str, scenario: str, d: str) -> None:
             from lidar_global_registration_tpu_torch.cli import main
             from lidar_global_registration_tpu_torch.ops import downsample
 
-            if form != "as_is":
-                downsample._centroids = _patched(form)
+            downsample._centroids = _patched(form)
             main(["alignment", "config.yaml"], device="cpu")
     lines = Path("data/debug/test_results.csv").read_text().strip().splitlines()
     head = lines[0].split(",")
