@@ -111,6 +111,17 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       cached inliers within 1 % of the alignment's, `measure`'s success
       rate 1; each command's step times, peak device memory and K1-K7
       launches are printed.
+  The dataset tool (tools/datasets_torch.py, its main(argv, device) in
+      this process, in chiprun_out/datasets): the graded 1M pair and the
+      source in a third frame written as a Stanford directory (.conf of
+      their poses), the source as LAS and 65,536 rows of two scans as ETH
+      CSV; then stanford, las, eth, eth_gt, transform to the global frame,
+      overlap of the 1M scans there, transform back, downsample on the card
+      and on the CPU, overlap of the downsampled scans on the card and on
+      the CPU (the same CSV), and perturb --seed, downsample
+      --without-transformation and `alignment` (FPFH at the fixed radius of
+      the loader's density) on the pair, held to the success rules.  The
+      tool itself launches none of K1-K7.
   The ('dp', 'tp') mesh (parallel/mesh.py, parallel/batch.py): K2-K4's
       slot-list forms at each half of the 1M scan's host ISS plan and of the
       64k pair's, each equal to the full pass's rows and held against its
@@ -3106,6 +3117,263 @@ def cli_measure(d: Path) -> None:
     assert float(row["success_rate"]) == 1.0, row
 
 
+DATASET_DIR = ROOT / "chiprun_out" / "datasets"
+DATASET_VOXEL = 0.1  # the tool's voxel (m): ~208k rows a 1M scan, overlap radius 0.2 m
+N_ETH = 65536  # the ETH CSV scans' rows (np.genfromtxt is slow at 1M)
+LAS_SCALE = 0.001
+PERTURB_SEED = 16
+# the raw scans' poses (local -> global, the source's frame): scanB's is the
+# scene's own (scene.scene_pair: b = (b_world - t) R), scanC's a _turn_z
+DATASET_TURN = (30.0, [5.0, -3.0, 1.0])
+
+
+def _z_pose(degrees: float, t) -> np.ndarray:
+    c, s = np.cos(np.deg2rad(degrees)), np.sin(np.deg2rad(degrees))
+    P = np.eye(4)
+    P[:2, :2] = [[c, -s], [s, c]]
+    P[:3, 3] = t
+    return P
+
+
+def write_las(path: Path, xyz: np.ndarray) -> None:
+    """A LAS 1.2 file of point format 0 (20-byte records: XYZ as i32 at
+    LAS_SCALE from an offset at the cloud's floor, then zeros)."""
+    import struct
+
+    n = len(xyz)
+    offset = np.floor(xyz.min(0).astype(np.float64))
+    header = bytearray(227)
+    header[0:4] = b"LASF"
+    header[24], header[25] = 1, 2
+    struct.pack_into("<HI", header, 94, 227, 227)
+    struct.pack_into("<BHI", header, 104, 0, 20, n)
+    struct.pack_into("<3d", header, 131, LAS_SCALE, LAS_SCALE, LAS_SCALE)
+    struct.pack_into("<3d", header, 155, *offset)
+    rec = np.zeros(n, np.dtype([("xyz", "<i4", (3,)), ("rest", "u1", (8,))]))
+    rec["xyz"] = np.round((xyz.astype(np.float64) - offset) / LAS_SCALE)
+    path.write_bytes(bytes(header) + rec.tobytes())
+
+
+def _gt_rows(path: Path) -> dict:
+    """A ground-truth CSV's rows as float64 4 x 4 matrices."""
+    rows = [ln.split(",") for ln in path.read_text().strip().splitlines()[1:]]
+    return {r[0]: np.array(r[1:17], np.float64).reshape(4, 4) for r in rows}
+
+
+def _ply_xyz(path: Path) -> np.ndarray:
+    from lidar_global_registration_tpu_torch.utils.io import read_ply
+
+    fields = read_ply(str(path))[0]
+    return np.stack([fields["x"], fields["y"], fields["z"]], axis=1)
+
+
+def dataset_phase(dev) -> dict:
+    """The port's dataset tool (tools/datasets_torch.py, each command through
+    its main(argv, device), as `python tools/datasets_torch.py` runs it) from
+    raw scans to a registration on the card, in chiprun_out/datasets: the
+    graded 1M pair and the source in a third frame (a _turn_z pose) written
+    as a Stanford directory with a .conf of their poses, the source once more
+    as LAS, 65,536 rows of two scans as ETH CSV with a .tfm; then `stanford`,
+    `las`, `eth`, `eth_gt`, `transform` to the global frame, `overlap` of the
+    1M scans there, `transform` back, `downsample` on the card and on the
+    CPU, `overlap` of the downsampled scans on the card and on the CPU, and
+    for the pair `perturb --seed`, `downsample --without-transformation` and
+    `python -m lidar_global_registration_tpu_torch alignment` (FPFH at the
+    fixed radius that the loader's density gives), held to the success
+    rules.  Each result is checked (GT rows against the poses, LAS rows
+    within half the scale, the round trip, card against CPU, the overlap
+    against the scene, the perturbed pose); the tool launches no kernel of
+    K1-K7.  The clouds are deleted afterwards.  Returns the alignment's
+    run (run_cli)."""
+    import importlib.util
+    import io
+    import shutil
+
+    import torch
+
+    from lidar_global_registration_tpu_torch.models.pipeline import (
+        cloud_from_ply,
+        preprocess_cloud,
+    )
+    from lidar_global_registration_tpu_torch.ops.density import cloud_density
+    from lidar_global_registration_tpu_torch.scene import ANGLE, OFFSET
+    from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS
+    from lidar_global_registration_tpu_torch.utils.io import write_ply
+
+    spec = importlib.util.spec_from_file_location("datasets_torch",
+                                                  ROOT / "tools" / "datasets_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    d = DATASET_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    raw, scan, pair, las, eth = (d / k for k in ("raw", "scan", "pair", "las", "eth"))
+    for p in (raw, las, eth / "csv", pair):
+        p.mkdir(parents=True)
+    cpu = torch.device("cpu")
+    peak = [0]  # `overlap` resets the peak: read it after each command
+
+    def run(*argv, device=dev, label=""):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tool.main([str(a) for a in argv], device=device)
+        log(f"# dataset {argv[0]} {time.perf_counter() - t0:.3f} s" + (f" ({label})" if label
+                                                                     else ""))
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated(dev))
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            log(f"#   {ln}")
+        return lines
+
+    def config(file: Path, **kv) -> Path:
+        file.write_text("".join(f"{k}: {v}\n" for k, v in kv.items()))
+        return file
+
+    try:
+        a, b, vp_a, vp_b, _T = iss_scene(N_PYR, dev, graded=True)
+        poses = {"scanA.ply": np.eye(4), "scanB.ply": _z_pose(np.rad2deg(ANGLE), OFFSET),
+                 "scanC.ply": _turn_z(np.eye(4), *DATASET_TURN).astype(np.float64)}
+        P_c = torch.as_tensor(poses["scanC.ply"], dtype=torch.float32, device=dev)
+        local = {"scanA.ply": a.cpu().numpy(), "scanB.ply": b.cpu().numpy(),
+                 "scanC.ply": ((a - P_c[:3, 3]) @ P_c[:3, :3]).cpu().numpy()}
+        vp_a, vp_b = vp_a.cpu().numpy().astype(np.float64), vp_b.cpu().numpy().astype(np.float64)
+        del a, b
+        t0 = time.perf_counter()
+        conf = ["camera 0 0 0 0 0 0 1"]
+        for name, xyz in local.items():
+            write_ply(str(raw / name), xyz)
+            theta = np.arctan2(poses[name][1, 0], poses[name][0, 0])
+            q = (0.0, 0.0, np.sin(-theta / 2), np.cos(-theta / 2))  # R(q) = the pose's R^T
+            conf.append(f"bmesh {name} " + " ".join(repr(float(v)) for v in
+                                                   (*poses[name][:3, 3], *q)))
+        (raw / "scan.conf").write_text("\n".join(conf) + "\n")
+        write_las(las / "scanA.las", local["scanA.ply"])
+        gt = ["reading," + ",".join(f"gT{i}{j}" for i in range(4) for j in range(4))]
+        for k, name in enumerate(("scanA.ply", "scanB.ply")):
+            np.savetxt(eth / "csv" / f"Hokuyo_{k}.csv", local[name][:N_ETH], fmt="%.9g",
+                       delimiter=",", header="x,y,z", comments="")
+            gt.append(f"Hokuyo_{k}.csv," + ",".join(repr(float(v)) for v in
+                                                    poses[name].reshape(-1)))
+        (eth / "csv" / "ground_truth.csv").write_text("\n".join(gt) + "\n")
+        log(f"# dataset raw scans written in {time.perf_counter() - t0:.2f} s: 3 x {N_PYR} "
+            f"points (PLY), LAS, 2 x {N_ETH} (ETH CSV)")
+
+        # the converters
+        zero_counters()
+        run("stanford", raw, "-o", scan)
+        got = _gt_rows(scan / "ground_truth.csv")
+        assert sorted(got) == sorted(poses), got
+        for name, P in poses.items():
+            assert np.abs(got[name] - P).max() <= 1e-6, (name, got[name], P)
+            assert np.array_equal(_ply_xyz(scan / name), local[name]), name
+        run("las", las)
+        xyz64, _i = tool.read_las(str(las / "scanA.las"))
+        las_err = float(np.abs(xyz64 - local["scanA.ply"]).max())
+        log(f"#   LAS rows: max error {las_err:.3g} (scale {LAS_SCALE})")
+        assert las_err <= 0.5 * LAS_SCALE * (1 + 1e-9), las_err
+        assert np.array_equal(_ply_xyz(las / "scanA.ply"), xyz64.astype(np.float32))
+        run("eth", eth / "csv", "-o", eth / "out")
+        for k, name in enumerate(("scanA.ply", "scanB.ply")):
+            assert np.array_equal(_ply_xyz(eth / "out" / f"Hokuyo_{k}.ply"),
+                                  local[name][:N_ETH]), k
+        (eth / "out" / "groundtruth").mkdir()
+        (eth / "out" / "groundtruth" / "Hokuyo_1-Hokuyo_0.tfm").write_text("\n".join(
+            " ".join(repr(float(v)) for v in row) for row in poses["scanB.ply"]) + "\n")
+        run("eth_gt", eth / "out")
+        got = _gt_rows(eth / "out" / "ground_truth.csv")
+        assert np.abs(got["Hokuyo_0.ply"] - np.eye(4)).max() <= 1e-6, got
+        assert np.abs(got["Hokuyo_1.ply"] - poses["scanB.ply"]).max() <= 1e-6, got
+
+        # the frames: to the global frame (the source's), the 1M overlap there, and back
+        frame = config(scan / "scan.yaml", ground_truth=scan / "ground_truth.csv")
+        run("transform", frame, "--current", "local", label="to the global frame")
+        world = {name: _ply_xyz(scan / name) for name in poses}
+        c_err = float(np.abs(world["scanC.ply"] - world["scanA.ply"]).max())
+        log(f"#   scanC in the global frame: max {c_err:.3g} from scanA")
+        assert c_err <= 1e-4, c_err
+        run("overlap", config(scan / "overlap.yaml", path=scan, voxel_size=DATASET_VOXEL),
+            label=f"{N_PYR} points a scan")
+        run("transform", frame, "--current", "global", label="back")
+        trip = max(float(np.abs(_ply_xyz(scan / n) - x).max()) for n, x in local.items())
+        log(f"#   round trip: max {trip:.3g}")
+        assert trip <= 1e-4, trip
+        del world
+
+        # downsample and overlap, on the card and on the CPU
+        down = scan / f"downsampled_{DATASET_VOXEL}"
+        ds_cfg = config(scan / "downsample.yaml", path=scan, voxel_size=DATASET_VOXEL,
+                        ground_truth=scan / "ground_truth.csv")
+        lines_cpu = run("downsample", ds_cfg, device=cpu, label="cpu")
+        rows_cpu = {name: _ply_xyz(down / name) for name in poses}
+        lines = run("downsample", ds_cfg, label="card")
+        assert lines == lines_cpu, (lines, lines_cpu)
+        for name in poses:
+            got, want = _ply_xyz(down / name), rows_cpu[name]
+            assert got.shape == want.shape, name
+            err = float(np.abs(got - want).max())
+            log(f"#   downsample {name}: card against cpu max {err:.3g}, "
+                f"{int((got != want).any(1).sum())} of {len(got)} rows not equal")
+            assert err <= 1e-5, (name, err)
+        del rows_cpu
+        ov_cfg = config(down / "overlap.yaml", path=down, voxel_size=DATASET_VOXEL)
+        run("overlap", ov_cfg, label="card")
+        matrix = (down / "overlapping.csv").read_text()
+        run("overlap", ov_cfg, device=cpu, label="cpu")
+        assert (down / "overlapping.csv").read_text() == matrix, matrix
+        M = {ln.split(",")[0]: [float(v) for v in ln.split(",")[1:]]
+             for ln in matrix.strip().splitlines()[1:]}
+        log(f"#   overlap: {M}")
+        # both scans sample every patch of one scene with the same weights
+        # (scene.scene_pair), and scanC is scanA's points
+        assert M["scanA.ply"][1] >= 0.99 and M["scanA.ply"][2] >= 0.999, M
+        assert not any(read_counters().values()), f"the tool launched a kernel: {read_counters()}"
+
+        # the pair: perturbed, downsampled in its own frames, registered
+        for name in ("scanA.ply", "scanB.ply", "ground_truth.csv"):
+            shutil.copy(scan / name, pair / name)
+        run("perturb", config(pair / "perturb.yaml", transform=pair / "scanA.ply",
+                              ground_truth=pair / "ground_truth.csv"), "--seed", PERTURB_SEED)
+        moved = "scanA_transformed_r.ply"
+        gt = _gt_rows(pair / "ground_truth.csv")
+        turned = _ply_xyz(pair / moved).astype(np.float64)
+        err = float(np.abs(turned @ gt[moved][:3, :3].T + gt[moved][:3, 3]
+                           - _ply_xyz(pair / "scanA.ply")).max())
+        log(f"#   perturbed scan under its new GT row: max {err:.3g} from scanA")
+        assert err <= 1e-4, err
+        (pair / "scanA.ply").unlink()
+        run("downsample", config(pair / "downsample.yaml", path=pair, voxel_size=DATASET_VOXEL),
+            "--without-transformation", label="card")
+        dp = pair / f"downsampled_{DATASET_VOXEL}"
+        T = np.linalg.inv(gt[moved]) @ gt["scanA.ply"]
+        vps = {moved: T[:3, :3] @ vp_a + T[:3, 3], "scanB.ply": vp_b}
+        (dp / "viewpoints.csv").write_text("reading,x,y,z\n" + "".join(
+            f"{n}," + ",".join(repr(float(x)) for x in v) + "\n" for n, v in vps.items()))
+        dens = [cloud_density(c.xyz, c.valid) for c in
+                (preprocess_cloud(cloud_from_ply(str(dp / n), dev)[0]) for n in vps)]
+        fr = float(np.sqrt(FEATURE_NR_POINTS * max(dens) ** 2 / np.pi))
+        log(f"#   feature radius {fr:.6g} from the loader's density {max(dens):.6g}")
+        (dp / "fpfh.yaml").write_text(
+            f"source: {moved}\ntarget: scanB.ply\nground_truth: ../ground_truth.csv\n"
+            f"viewpoints: viewpoints.csv\nhypothesis_batch: 1024\n{FPFH_CLI}"
+            f"feature_radius: {fr!r}\n")
+        done = run_cli(dp, "alignment", "fpfh.yaml", "alignment_dataset")
+        cli_results(dp, 1)
+        got = done["launches"]
+        assert all(got.get(w, 0) > 0 for _k, w in CLI_WRAPPERS), f"a kernel never ran: {got}"
+        assert all(got[w] == 0 for w in CLI_OFF), f"a form off the CLI path ran: {got}"
+    finally:  # the clouds: too large to keep
+        for f in [*d.rglob("*.ply"), *d.rglob("*.las"), *(eth / "csv").glob("Hokuyo_*.csv")]:
+            f.unlink()
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated(dev))
+    log(f"# dataset phase: {time.perf_counter() - t_phase:.1f} s on {gpu_line()}; peak "
+        f"device memory {peak[0] / 2**30:.3f} GiB")
+    return done
+
+
 def iss_phase(dev):
     """The 10,485,760-point ISS pair through three routes: the bench's
     flagship row (FPFH), the shipped SHOT regime, and the classic masked
@@ -3376,6 +3644,8 @@ def main() -> int:
     # each record reads its own form's counter (0 for the forms off the path)
     cli_launches, host, extras, host_plan = cli_phase(dev)
     elapsed("CLI phase")
+    cli_launches["cli_fpfh_dataset"] = dataset_phase(dev)["launches"]
+    elapsed("dataset phase")
     mesh_records, mesh_launches = mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan)
     del host_plan
     one_graph.update(mesh_launches)

@@ -435,12 +435,13 @@ def test_cloud_from_numpy():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every .py of the port and chip_smoke.py: no import of jax or of
-    lidar_global_registration_tpu (the name without _torch)."""
+    """Every .py of the port, chip_smoke.py and tools/datasets_torch.py: no
+    import of jax or of lidar_global_registration_tpu (the name without
+    _torch)."""
     pattern = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|lidar_global_registration_tpu)(?:[.\s]|$)", re.M)
     files = sorted((ROOT / "lidar_global_registration_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "datasets_torch.py"]
     assert len(files) > 20
     for f in files:
         assert not pattern.search(f.read_text()), f
