@@ -122,6 +122,13 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       --without-transformation and `alignment` (FPFH at the fixed radius of
       the loader's density) on the pair, held to the success rules.  The
       tool itself launches none of K1-K7.
+  The bench entry (bench_torch.py, bench.py's port, as a user runs it, in a
+      process of its own): its two default rows, the 65,536-point
+      keypoint-any pair and the 10,485,760-point ISS pair, warm-up + 3
+      repeats each under the success rule, with both CPU baselines measured
+      afresh at 4,096 points; each row's timed repeats must have launched
+      the kernel forms of its route and no other, and the merged flagship
+      line must carry a rate for both rows and a vs_baseline.
   The ('dp', 'tp') mesh (parallel/mesh.py, parallel/batch.py): K2-K4's
       slot-list forms at each half of the 1M scan's host ISS plan and of the
       64k pair's, each equal to the full pass's rows and held against its
@@ -3374,6 +3381,74 @@ def dataset_phase(dev) -> dict:
     return done
 
 
+BENCH_TIMEOUT = 900  # seconds for bench_torch.py's two default rows
+BENCH_CPU_N = "4096"  # the CPU baselines' size here (the bench's default: 65,536)
+# the kernel forms each default row must launch in its timed repeats
+BENCH_NEED = {
+    "64k keypoint-any": ("surface_cuda", "spfh_cuda", "combine_cuda", "nn_l2_cuda"),
+    "10M ISS": ("surface_cuda", "iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda",
+                "spfh_at_cuda", "combine_at_cuda", "nn_l2_cuda"),
+}
+
+
+def bench_phase() -> dict:
+    """The port's bench entry as a user runs it: `python3 bench_torch.py` with
+    no LGR_BENCH_N, that is bench.py's two default rows (the 65,536-point
+    keypoint-any pair and the 10,485,760-point ISS pair, 3 repeats each, each
+    in a process of its own, merged into the flagship line), after its CPU
+    cache was deleted and with LGR_BENCH_CPU_N=4096, so that both CPU
+    baselines run, at a size that keeps the phase short.  Every `# repeat`
+    line must say ok=True, each row's timed repeats must have launched the
+    kernel forms of its route and no other (the row's `# launches in the
+    repeats` line), and the JSON line
+    must be the flagship row with value > 0, extra_64k_pairs_per_s > 0,
+    three repeats, a vs_baseline and no note or error.  Its stderr is kept
+    in chiprun_out/bench.log.  Returns the JSON line."""
+    import os
+    import signal
+
+    import torch
+
+    torch.cuda.empty_cache()
+    (ROOT / ".bench_torch_cpu_cache.json").unlink(missing_ok=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("LGR_")}
+    env["LGR_BENCH_CPU_N"] = BENCH_CPU_N
+    t0 = time.perf_counter()
+    # a session of its own: a timeout stops the rows' and workers' processes too
+    proc = subprocess.Popen([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"bench_torch.py ran past {BENCH_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "bench.log").write_text(err + out)
+    lines = err.splitlines()
+    for line in lines:
+        if line.startswith(("# device", "# pre-downsample", "# repeat", "# launches",
+                            "# cpu baseline")):
+            log(f"#   {line[2:]}")
+    assert proc.returncode == 0, f"bench_torch.py exited {proc.returncode}:\n{err[-3000:]}"
+    repeats = [line for line in lines if line.startswith("# repeat")]
+    assert len(repeats) == 6 and all(line.endswith(" ok=True") for line in repeats), repeats
+    counted = [json.loads(line.split(": ", 1)[1].split("; ")[0]) for line in lines
+               if line.startswith("# launches in the repeats: ")]
+    assert len(counted) == len(BENCH_NEED), counted
+    for (label, need), got in zip(BENCH_NEED.items(), counted):
+        check_counts(f"bench {label}", got, need)
+    res = json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+    log(f"# bench phase: {wall:.1f} s wall; {json.dumps(res)}")
+    assert res["metric"] == "register_10m_pt_pair_e2e_flagship", res
+    assert res["value"] > 0 and (res["extra_64k_pairs_per_s"] or 0) > 0, res
+    assert len(res["per_repeat_s"]) == REPEATS and res["vs_baseline"] is not None, res
+    assert "note" not in res and "error" not in res, res
+    return res
+
+
 def iss_phase(dev):
     """The 10,485,760-point ISS pair through three routes: the bench's
     flagship row (FPFH), the shipped SHOT regime, and the classic masked
@@ -3646,6 +3721,8 @@ def main() -> int:
     elapsed("CLI phase")
     cli_launches["cli_fpfh_dataset"] = dataset_phase(dev)["launches"]
     elapsed("dataset phase")
+    bench_phase()
+    elapsed("bench phase")
     mesh_records, mesh_launches = mesh_phase(dev, a, b, vp_a, vp_b, T_gt, radii, host_plan)
     del host_plan
     one_graph.update(mesh_launches)
