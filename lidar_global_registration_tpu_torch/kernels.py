@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from lidar_global_registration_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -125,20 +127,22 @@ def build(out: Path, verbose: bool = False) -> tuple[float, str]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
+    """The loaded kernel library, built first if its sources changed (the
+    span lgr.setup.kernel_library, once a process)."""
     global _lib
     if _lib is None:
-        path = library_path()
-        if not path.exists():
-            build(path)
-        lib = ctypes.CDLL(str(path))
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        lib.lgr_error_string.argtypes = [ctypes.c_int]
-        lib.lgr_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with profiling.span("lgr.setup.kernel_library"):
+            path = library_path()
+            if not path.exists():
+                build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            lib.lgr_error_string.argtypes = [ctypes.c_int]
+            lib.lgr_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

@@ -78,6 +78,7 @@ the radii (ops/density.derive_radii).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -115,6 +116,7 @@ from lidar_global_registration_tpu_torch.ops.normals import normals_from_neighbo
 from lidar_global_registration_tpu_torch.ops.shot import shot
 from lidar_global_registration_tpu_torch.ops.transform import kabsch, to_matrix4
 from lidar_global_registration_tpu_torch.types import FEATURE_NR_POINTS, NORMAL_NR_POINTS
+from lidar_global_registration_tpu_torch.utils import profiling
 
 BIG = 3.0e38
 
@@ -230,22 +232,23 @@ def pre_downsample_pair(src_xyz, src_valid, tgt_xyz, tgt_valid, voxel_src: float
             f"(got {src_xyz.shape[0]} vs {tgt_xyz.shape[0]}); pad both sides "
             "to one shared capacity first"
         )
-    if aabb is None:
-        aabb = _aabb_pair(src_xyz, src_valid, tgt_xyz, tgt_valid).cpu().numpy()
-    aabb = np.asarray(aabb, np.float32)
+    with profiling.span("lgr.pre_downsample"):
+        if aabb is None:
+            aabb = _aabb_pair(src_xyz, src_valid, tgt_xyz, tgt_valid).cpu().numpy()
+        aabb = np.asarray(aabb, np.float32)
 
-    def down(xyz, valid, voxel, lo):
-        # float32 arithmetic of the JAX host code: f32 lo - f32(voxel / 2)
-        origin = torch.from_numpy(lo - np.float32(0.5 * voxel)).to(xyz.device)
-        return voxel_centroids_packed(xyz, valid, voxel, origin)
+        def down(xyz, valid, voxel, lo):
+            # float32 arithmetic of the JAX host code: f32 lo - f32(voxel / 2)
+            origin = torch.from_numpy(lo - np.float32(0.5 * voxel)).to(xyz.device)
+            return voxel_centroids_packed(xyz, valid, voxel, origin)
 
-    dx_s, dv_s, n_s = down(src_xyz, src_valid, voxel_src, aabb[0, 0])
-    dx_t, dv_t, n_t = down(tgt_xyz, tgt_valid, voxel_tgt, aabb[1, 0])
-    n_s, n_t = (int(v) for v in torch.stack([n_s, n_t]).tolist())  # one host read
-    m = min(max(_pad_quantum(n_s), _pad_quantum(n_t)), src_xyz.shape[0])
-    sx, sv = _compact_xyz(dx_s, dv_s, n_s, m)
-    tx, tv = _compact_xyz(dx_t, dv_t, n_t, m)
-    return sx, sv, tx, tv
+        dx_s, dv_s, n_s = down(src_xyz, src_valid, voxel_src, aabb[0, 0])
+        dx_t, dv_t, n_t = down(tgt_xyz, tgt_valid, voxel_tgt, aabb[1, 0])
+        n_s, n_t = (int(v) for v in torch.stack([n_s, n_t]).tolist())  # one host read
+        m = min(max(_pad_quantum(n_s), _pad_quantum(n_t)), src_xyz.shape[0])
+        sx, sv = _compact_xyz(dx_s, dv_s, n_s, m)
+        tx, tv = _compact_xyz(dx_t, dv_t, n_t, m)
+        return sx, sv, tx, tv
 
 
 # ---------------------------------------------------------------------------
@@ -315,16 +318,21 @@ def _centred(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return x - mean / v.to(torch.float32).mean().clamp_min(1e-9)
 
 
-def _nn_both_ways(fq, ft, qv, tv, cfg: FlagshipConfig, _t=lambda label: None):
+def _no_stage(label: str):
+    """The stage of a block run outside register_pair_staged's stages."""
+    return contextlib.nullcontext()
+
+
+def _nn_both_ways(fq, ft, qv, tv, cfg: FlagshipConfig, _t=_no_stage):
     """Descriptor 1-NN both ways (the bf16 matcher with cfg.bf16_matching),
-    each direction a stage of _t.  Returns (idx_st, mask_st, idx_ts,
-    mask_ts), each [rows, 1]."""
-    idx_st, _d1, mask_st = matchers.match_bf(fq, ft, qv, tv, k=1, tile=cfg.match_tile,
-                                             bf16=cfg.bf16_matching)
-    _t("match_st")
-    idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, tv, qv, k=1, tile=cfg.match_tile,
-                                             bf16=cfg.bf16_matching)
-    _t("match_ts")
+    each direction a stage of _t and a span lgr.match.descriptor_nn.
+    Returns (idx_st, mask_st, idx_ts, mask_ts), each [rows, 1]."""
+    with _t("match_st"), profiling.span("lgr.match.descriptor_nn"):
+        idx_st, _d1, mask_st = matchers.match_bf(fq, ft, qv, tv, k=1, tile=cfg.match_tile,
+                                                 bf16=cfg.bf16_matching)
+    with _t("match_ts"), profiling.span("lgr.match.descriptor_nn"):
+        idx_ts, _d2, mask_ts = matchers.match_bf(ft, fq, tv, qv, k=1, tile=cfg.match_tile,
+                                                 bf16=cfg.bf16_matching)
     return idx_st, mask_st, idx_ts, mask_ts
 
 
@@ -339,7 +347,8 @@ def _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, t
     excluded by id, keypoints centred per side) and the keypoint-cloud
     density as threshold; then the scatter back to full rows and the
     correspondence stage (one-sided with cluster matching, mutual
-    without)."""
+    without).  Spans: lgr.match.descriptor_nn (the 1-NN), lgr.match.gate_knn
+    (the keypoint kNN) and lgr.match.consensus (the rest)."""
     N_all = src_xyz.shape[0]
     dev = src_xyz.device
     if cand is not None:
@@ -348,35 +357,38 @@ def _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, t
         ic_st, mc_st, ic_ts, mc_ts = _nn_both_ways(fqc, ftc, qv, tv, cfg)
     clustered = cfg.use_iss and cfg.cluster_matching
     if clustered:
-        ksq = _centred(src_xyz[sq_g], qv)
-        kst = _centred(tgt_xyz[st_g], tv)
-        kq = matchers.match_bf(ksq, ksq, qv, qv, k=kc, exclude_diag=True)
-        kt = matchers.match_bf(kst, kst, tv, tv, k=kc, exclude_diag=True)
-        keep_q = _consensus_keep(ic_st[:, 0], mc_st[:, 0], ic_ts[:, 0], mc_ts[:, 0],
-                                 kq, kt, cfg)
-        mc_st = mc_st & keep_q[:, None]
-        # the thresholds need each keypoint's exact nearest keypoint: column 0
-        # of the exact kNN (the JAX package reruns an exact 1-NN after its
-        # approximate consensus kNN)
-        rq, rt = sqj < N_all, stj < N_all
-        dens_s = dens_s.clone()
-        dens_t = dens_t.clone()
-        dens_s[sqj[rq]] = _kp_density_nearest(*(a[:, :1] for a in kq))[rq]
-        dens_t[stj[rt]] = _kp_density_nearest(*(a[:, :1] for a in kt))[rt]
-    zi = torch.zeros((N_all, 1), dtype=torch.int64, device=dev)
-    zm = torch.zeros((N_all, 1), dtype=torch.bool, device=dev)
-    rq = sqj < N_all
-    idx_st, mask_st = zi.clone(), zm.clone()
-    idx_st[sqj[rq], 0] = st_g[ic_st[rq, 0]]
-    mask_st[sqj[rq], 0] = (mc_st[:, 0] & qv)[rq]
-    idx_ts, mask_ts = zi, zm
-    if not clustered:
-        rt = stj < N_all
-        idx_ts, mask_ts = zi.clone(), zm.clone()
-        idx_ts[stj[rt], 0] = sq_g[ic_ts[rt, 0]]
-        mask_ts[stj[rt], 0] = (mc_ts[:, 0] & tv)[rt]
-    return _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t,
-                                 distance_thr, require_mutual=not clustered)
+        with profiling.span("lgr.match.gate_knn"):
+            ksq = _centred(src_xyz[sq_g], qv)
+            kst = _centred(tgt_xyz[st_g], tv)
+            kq = matchers.match_bf(ksq, ksq, qv, qv, k=kc, exclude_diag=True)
+            kt = matchers.match_bf(kst, kst, tv, tv, k=kc, exclude_diag=True)
+    with profiling.span("lgr.match.consensus"):
+        if clustered:
+            keep_q = _consensus_keep(ic_st[:, 0], mc_st[:, 0], ic_ts[:, 0], mc_ts[:, 0],
+                                     kq, kt, cfg)
+            mc_st = mc_st & keep_q[:, None]
+            # the thresholds need each keypoint's exact nearest keypoint: column 0
+            # of the exact kNN (the JAX package reruns an exact 1-NN after its
+            # approximate consensus kNN)
+            rq, rt = sqj < N_all, stj < N_all
+            dens_s = dens_s.clone()
+            dens_t = dens_t.clone()
+            dens_s[sqj[rq]] = _kp_density_nearest(*(a[:, :1] for a in kq))[rq]
+            dens_t[stj[rt]] = _kp_density_nearest(*(a[:, :1] for a in kt))[rt]
+        zi = torch.zeros((N_all, 1), dtype=torch.int64, device=dev)
+        zm = torch.zeros((N_all, 1), dtype=torch.bool, device=dev)
+        rq = sqj < N_all
+        idx_st, mask_st = zi.clone(), zm.clone()
+        idx_st[sqj[rq], 0] = st_g[ic_st[rq, 0]]
+        mask_st[sqj[rq], 0] = (mc_st[:, 0] & qv)[rq]
+        idx_ts, mask_ts = zi, zm
+        if not clustered:
+            rt = stj < N_all
+            idx_ts, mask_ts = zi.clone(), zm.clone()
+            idx_ts[stj[rt], 0] = sq_g[ic_ts[rt, 0]]
+            mask_ts[stj[rt], 0] = (mc_ts[:, 0] & tv)[rt]
+        return _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t,
+                                     distance_thr, require_mutual=not clustered)
 
 
 def _corr_export(j, keep, thr, M: int):
@@ -672,34 +684,33 @@ def _match_region(src, tgt, fq, fq_valid, ft, ft_valid, ec_q, ec_t, dens_s, dens
             qv = torch.arange(mq, device=sqj.device) < n_q
             tv = torch.arange(mt, device=stj.device) < n_t
             if shot_mode:
-                fqc, ok_q = _shot_stage(src_xyz[sq_g], src_normal[sq_g], qv, src_xyz, src_normal,
-                                        src_valid, feature_radius, cfg, plan=pf_s)
-                _t("shot_src")
-                ftc, ok_t = _shot_stage(tgt_xyz[st_g], tgt_normal[st_g], tv, tgt_xyz, tgt_normal,
-                                        tgt_valid, feature_radius, cfg, plan=pf_t)
-                _t("shot_tgt")
+                with _t("shot_src"):
+                    fqc, ok_q = _shot_stage(src_xyz[sq_g], src_normal[sq_g], qv, src_xyz,
+                                            src_normal, src_valid, feature_radius, cfg, plan=pf_s)
+                with _t("shot_tgt"):
+                    ftc, ok_t = _shot_stage(tgt_xyz[st_g], tgt_normal[st_g], tv, tgt_xyz,
+                                            tgt_normal, tgt_valid, feature_radius, cfg, plan=pf_t)
                 qv, tv = qv & ok_q, tv & ok_t
             else:
                 fqc, ftc = fq[sq_g], ft[st_g]
         kc = max(2, min(cfg.cluster_k, n_q - 1, n_t - 1))
-        out = _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, tgt_xyz,
-                                        dens_s, dens_t, distance_thr, cfg, kc)
-        _t("match_corr")
-        return out
+        with _t("match_corr"):
+            return _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz,
+                                             tgt_xyz, dens_s, dens_t, distance_thr, cfg, kc)
     if cfg.use_iss and cfg.cluster_matching:
         print(f"# cluster matching -> mutual 1-NN fallback: {n_q}/{n_t} keypoints of {N_all} "
               "rows exceed the compaction precondition", flush=True)
     if shot_mode:
-        fq, fq_valid = _shot_stage(src_xyz, src_normal, fq_valid, src_xyz, src_normal, src_valid,
-                                   feature_radius, cfg, plan=pf_s)
-        _t("shot_src")
-        ft, ft_valid = _shot_stage(tgt_xyz, tgt_normal, ft_valid, tgt_xyz, tgt_normal, tgt_valid,
-                                   feature_radius, cfg, plan=pf_t)
-        _t("shot_tgt")
+        with _t("shot_src"):
+            fq, fq_valid = _shot_stage(src_xyz, src_normal, fq_valid, src_xyz, src_normal,
+                                       src_valid, feature_radius, cfg, plan=pf_s)
+        with _t("shot_tgt"):
+            ft, ft_valid = _shot_stage(tgt_xyz, tgt_normal, ft_valid, tgt_xyz, tgt_normal,
+                                       tgt_valid, feature_radius, cfg, plan=pf_t)
     idx_st, mask_st, idx_ts, mask_ts = _nn_both_ways(fq, ft, fq_valid, ft_valid, cfg, _t)
-    out = _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t, distance_thr)
-    _t("corr")
-    return out
+    with _t("corr"), profiling.span("lgr.match.consensus"):
+        return _correspondence_stage(idx_st, mask_st, idx_ts, mask_ts, dens_s, dens_t,
+                                     distance_thr)
 
 
 def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
@@ -710,18 +721,18 @@ def _any_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
     radius."""
     normal_cell, feature_radius = radii[0], radii[5]
     shot_mode = cfg.descriptor == "shot"
-    plans = [cellgrid.plan_grid(x, v, c)
-             for x, v in ((src_xyz, src_valid), (tgt_xyz, tgt_valid))
-             for c in (normal_cell, feature_radius)]
-    _t("plan")
+    with _t("plan"):
+        plans = [cellgrid.plan_grid(x, v, c)
+                 for x, v in ((src_xyz, src_valid), (tgt_xyz, tgt_valid))
+                 for c in (normal_cell, feature_radius)]
 
     def side(plan_n, plan_f, valid, vp, which):
-        normal, _curv, density, _eig, _ok = cellgrid.surface_pass(plan_n, normal_cell, vp)
-        _t(f"side_{which}")
+        with _t(f"side_{which}"):
+            normal, _curv, density, _eig, _ok = cellgrid.surface_pass(plan_n, normal_cell, vp)
         if shot_mode:
             return normal, density, None, valid
-        feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(plan_f, normal), feature_radius)
-        _t(f"fpfh_{which}")
+        with _t(f"fpfh_{which}"):
+            feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(plan_f, normal), feature_radius)
         return normal, density, feat, fv & valid
 
     src_normal, dens_s, fq, fq_valid = side(plans[0], plans[1], src_valid, vp_src, "src")
@@ -745,27 +756,28 @@ def _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, 
     # NORMAL_NR-point disks on a grid of spacing voxel_f
     normal_f = float(math.sqrt(NORMAL_NR_POINTS / math.pi)) * voxel_f
     N_all = src_valid.shape[0]
-    sm_xyz_s, sm_v_s, row_of_s, n_sm_s = voxel_centroids_map(src_xyz, src_valid, voxel_f)
-    sm_xyz_t, sm_v_t, row_of_t, n_sm_t = voxel_centroids_map(tgt_xyz, tgt_valid, voxel_f)
-    _t("fs_maps")
-    pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
-    pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
-    pns_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, normal_f)
-    pns_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, normal_f)
-    # SHOT plans its own query grid on the sliced surface (in shot_*)
-    pfs_s = pfs_t = None
-    if not shot_mode:
-        pfs_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, feature_radius)
-        pfs_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, feature_radius)
-    _t("plan")
-    src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
-    _t("side_src")
-    tgt_kp, _sal_t = cellgrid.iss_pass(pi_t, iss_radius_tgt)
-    _t("side_tgt")
+    with _t("fs_maps"):
+        sm_xyz_s, sm_v_s, row_of_s, n_sm_s = voxel_centroids_map(src_xyz, src_valid, voxel_f)
+        sm_xyz_t, sm_v_t, row_of_t, n_sm_t = voxel_centroids_map(tgt_xyz, tgt_valid, voxel_f)
+    with _t("plan"):
+        pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
+        pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
+        pns_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, normal_f)
+        pns_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, normal_f)
+        # SHOT plans its own query grid on the sliced surface (in shot_*)
+        pfs_s = pfs_t = None
+        if not shot_mode:
+            pfs_s = cellgrid.plan_grid(sm_xyz_s, sm_v_s, feature_radius)
+            pfs_t = cellgrid.plan_grid(sm_xyz_t, sm_v_t, feature_radius)
+    with _t("side_src"):
+        src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
+    with _t("side_tgt"):
+        tgt_kp, _sal_t = cellgrid.iss_pass(pi_t, iss_radius_tgt)
     # ONE stacked host read: both keypoint counts + both surface sizes
-    n_kp_s, n_kp_t, n_sm_s, n_sm_t = (int(v) for v in torch.stack([
-        src_kp.sum(), tgt_kp.sum(), torch.as_tensor(n_sm_s, device=src_kp.device),
-        torch.as_tensor(n_sm_t, device=src_kp.device)]).tolist())
+    with profiling.span("lgr.keypoints.counts"):
+        n_kp_s, n_kp_t, n_sm_s, n_sm_t = (int(v) for v in torch.stack([
+            src_kp.sum(), tgt_kp.sum(), torch.as_tensor(n_sm_s, device=src_kp.device),
+            torch.as_tensor(n_sm_t, device=src_kp.device)]).tolist())
     if not (0 < n_kp_s <= N_all // 2 and 0 < n_kp_t <= N_all // 2):
         raise _GateFailed(f"kp counts {n_kp_s}/{n_kp_t} of {N_all} rows outside the "
                           "compaction precondition")
@@ -774,28 +786,27 @@ def _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, 
                           f"{pi_s.n_valid}/{pi_t.n_valid}-row clouds")
 
     def fs_side(kp, n_kp, row_of, n_sm, pns, pfs, xyz, sm_xyz, sm_v, vp, which):
-        m = _pad_quantum(n_kp)
-        sj = _compact_rows(kp, n_kp, m)
-        g = sj.clamp_max(N_all - 1)
-        kpv = torch.arange(m, device=kp.device) < n_kp
-        rows_small = torch.where(sj < N_all, row_of[g], N_all)
-        normal_sm = cellgrid.surface_pass(pns, normal_f, vp)[0]
-        if shot_mode:
-            # SHOT at the exact keypoint positions over the surface, whose
-            # rows are front-compacted: slicing to the padded surface size
-            # shrinks the query's grid
-            ms = min(_pad_quantum(n_sm), N_all)
-            normal_c = normal_sm[:ms]
-            featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)], kpv,
-                                     sm_xyz[:ms], normal_c, sm_v[:ms], feature_radius, cfg)
-            _t(f"shot_{which}")
+        with _t(f"{'shot' if shot_mode else 'fpfh'}_{which}"):
+            m = _pad_quantum(n_kp)
+            sj = _compact_rows(kp, n_kp, m)
+            g = sj.clamp_max(N_all - 1)
+            kpv = torch.arange(m, device=kp.device) < n_kp
+            rows_small = torch.where(sj < N_all, row_of[g], N_all)
+            normal_sm = cellgrid.surface_pass(pns, normal_f, vp)[0]
+            if shot_mode:
+                # SHOT at the exact keypoint positions over the surface, whose
+                # rows are front-compacted: slicing to the padded surface size
+                # shrinks the query's grid
+                ms = min(_pad_quantum(n_sm), N_all)
+                normal_c = normal_sm[:ms]
+                featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)], kpv,
+                                         sm_xyz[:ms], normal_c, sm_v[:ms], feature_radius, cfg)
+                return sj, g, kpv & fvc, featc
+            kp_small = torch.zeros((N_all,), dtype=torch.bool, device=kp.device)
+            kp_small[rows_small[rows_small < N_all]] = True
+            featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), feature_radius,
+                                            kp=kp_small, kp_rows=rows_small)
             return sj, g, kpv & fvc, featc
-        kp_small = torch.zeros((N_all,), dtype=torch.bool, device=kp.device)
-        kp_small[rows_small[rows_small < N_all]] = True
-        featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), feature_radius,
-                                        kp=kp_small, kp_rows=rows_small)
-        _t(f"fpfh_{which}")
-        return sj, g, kpv & fvc, featc
 
     sqj, sq_g, qv, fqc = fs_side(src_kp, n_kp_s, row_of_s, n_sm_s, pns_s, pfs_s, src_xyz,
                                  sm_xyz_s, sm_v_s, vp_src, "src")
@@ -806,10 +817,9 @@ def _feature_scale_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, 
     # falls back to distance_thr in the correspondence stage
     dens = torch.zeros((N_all,), dtype=torch.float32, device=src_xyz.device)
     kc = max(2, min(cfg.cluster_k, n_kp_s - 1, n_kp_t - 1))
-    out = _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz, tgt_xyz,
-                                    dens, dens, distance_thr, cfg, kc)
-    _t("match_corr")
-    return out
+    with _t("match_corr"):
+        return _compact_match_corr_stage(fqc, ftc, qv, tv, sqj, stj, sq_g, st_g, src_xyz,
+                                         tgt_xyz, dens, dens, distance_thr, cfg, kc)
 
 
 _BUCKET_LO, _BUCKET_HI = -24, 24  # the log2-bucket window: radii of 6e-8 to 1.7e7 m
@@ -880,18 +890,18 @@ def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt
     shot_mode = cfg.descriptor == "shot"
     N_all = src_valid.shape[0]
     dev = src_xyz.device
-    pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
-    pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
-    _t("plan")
-    src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
-    _t("side_src")
-    tgt_kp, _sal_t = cellgrid.iss_pass(pi_t, iss_radius_tgt)
-    _t("side_tgt")
-    li_s, hist_s, fnd_s = _bucket_rows(src_xyz, src_valid, src_kp, dens_s, cfg.scale_factor)
-    li_t, hist_t, fnd_t = _bucket_rows(tgt_xyz, tgt_valid, tgt_kp, dens_t, cfg.scale_factor)
-    # ONE host read: both keypoint counts and both bucket histograms
-    cnt = torch.cat([torch.stack([src_kp.sum(), tgt_kp.sum()]), hist_s, hist_t]).cpu().numpy()
-    _t("bucket")
+    with _t("plan"):
+        pi_s = cellgrid.plan_grid(src_xyz, src_valid, iss_radius_src)
+        pi_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, iss_radius_tgt)
+    with _t("side_src"):
+        src_kp, _sal_s = cellgrid.iss_pass(pi_s, iss_radius_src)
+    with _t("side_tgt"):
+        tgt_kp, _sal_t = cellgrid.iss_pass(pi_t, iss_radius_tgt)
+    with _t("bucket"):
+        li_s, hist_s, fnd_s = _bucket_rows(src_xyz, src_valid, src_kp, dens_s, cfg.scale_factor)
+        li_t, hist_t, fnd_t = _bucket_rows(tgt_xyz, tgt_valid, tgt_kp, dens_t, cfg.scale_factor)
+        # ONE host read: both keypoint counts and both bucket histograms
+        cnt = torch.cat([torch.stack([src_kp.sum(), tgt_kp.sum()]), hist_s, hist_t]).cpu().numpy()
     n_kp_s, n_kp_t = int(cnt[0]), int(cnt[1])
     if not (0 < n_kp_s <= N_all // 2 and 0 < n_kp_t <= N_all // 2):
         raise _GateFailed(f"kp counts {n_kp_s}/{n_kp_t} of {N_all} rows outside the "
@@ -908,47 +918,46 @@ def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt
                           f"tgt [{min_t},{max_t}])")
 
     def pyr_side(xyz, valid, kp, n_kp, li_row, lmin, lmax, vp, which):
-        m = _pad_quantum(n_kp)
-        sj = _compact_rows(kp, n_kp, m)
-        g = sj.clamp_max(N_all - 1)
-        kpv = torch.arange(m, device=dev) < n_kp
-        li_kp = li_row[g].clamp(lmin, lmax)
-        # every level's surface is voxelised from the working cloud itself
-        maps = []
-        for l in range(lmin, lmax + 1):
-            r_l = float(cfg.scale_factor) ** l
-            voxel_l = float(math.sqrt(math.pi * r_l * r_l / FEATURE_NR_POINTS))
-            maps.append((r_l, float(math.sqrt(NORMAL_NR_POINTS / math.pi)) * voxel_l,
-                         voxel_centroids_map(xyz, valid, voxel_l)))
-        n_sms = [int(v) for v in torch.stack([mp[2][3] for mp in maps]).tolist()]  # one read
-        _t("fs_maps")
-        plans = [(cellgrid.plan_grid(sm_xyz, sm_v, normal_l),
-                  None if shot_mode else cellgrid.plan_grid(sm_xyz, sm_v, r_l))
-                 for r_l, normal_l, (sm_xyz, sm_v, _row_of, _n) in maps]
-        _t("plan")
+        with _t("fs_maps"):
+            m = _pad_quantum(n_kp)
+            sj = _compact_rows(kp, n_kp, m)
+            g = sj.clamp_max(N_all - 1)
+            kpv = torch.arange(m, device=dev) < n_kp
+            li_kp = li_row[g].clamp(lmin, lmax)
+            # every level's surface is voxelised from the working cloud itself
+            maps = []
+            for l in range(lmin, lmax + 1):
+                r_l = float(cfg.scale_factor) ** l
+                voxel_l = float(math.sqrt(math.pi * r_l * r_l / FEATURE_NR_POINTS))
+                maps.append((r_l, float(math.sqrt(NORMAL_NR_POINTS / math.pi)) * voxel_l,
+                             voxel_centroids_map(xyz, valid, voxel_l)))
+            n_sms = [int(v) for v in torch.stack([mp[2][3] for mp in maps]).tolist()]  # one read
+        with _t("plan"):
+            plans = [(cellgrid.plan_grid(sm_xyz, sm_v, normal_l),
+                      None if shot_mode else cellgrid.plan_grid(sm_xyz, sm_v, r_l))
+                     for r_l, normal_l, (sm_xyz, sm_v, _row_of, _n) in maps]
         levels = []
         for i, (r_l, normal_l, (sm_xyz, sm_v, row_of, _n)) in enumerate(maps):
             l = lmin + i
             pns, pfs = plans[i]
-            normal_sm = cellgrid.surface_pass(pns, normal_l, vp)[0]
-            mask_l = kpv & (li_kp <= l)
-            rows_small = torch.where(sj < N_all, row_of[g], N_all)
-            if shot_mode:
-                # the surface's rows are front-compacted: slicing to its
-                # padded size shrinks the query's grid
-                ms = min(_pad_quantum(n_sms[i]), N_all)
-                normal_c = normal_sm[:ms]
-                featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)], mask_l,
-                                         sm_xyz[:ms], normal_c, sm_v[:ms], r_l, cfg)
-                _t(f"shot_{which}_l{l}")
-            else:
-                # SPFH around this level's keypoints only; the combine runs
-                # at every keypoint's row and mask_l drops the others
-                kp_small = torch.zeros((N_all,), dtype=torch.bool, device=dev)
-                kp_small[rows_small[mask_l]] = True
-                featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), r_l,
-                                                kp=kp_small, kp_rows=rows_small)
-                _t(f"fpfh_{which}_l{l}")
+            with _t(f"{'shot' if shot_mode else 'fpfh'}_{which}_l{l}"):
+                normal_sm = cellgrid.surface_pass(pns, normal_l, vp)[0]
+                mask_l = kpv & (li_kp <= l)
+                rows_small = torch.where(sj < N_all, row_of[g], N_all)
+                if shot_mode:
+                    # the surface's rows are front-compacted: slicing to its
+                    # padded size shrinks the query's grid
+                    ms = min(_pad_quantum(n_sms[i]), N_all)
+                    normal_c = normal_sm[:ms]
+                    featc, fvc = _shot_stage(xyz[g], normal_c[rows_small.clamp_max(ms - 1)],
+                                             mask_l, sm_xyz[:ms], normal_c, sm_v[:ms], r_l, cfg)
+                else:
+                    # SPFH around this level's keypoints only; the combine runs
+                    # at every keypoint's row and mask_l drops the others
+                    kp_small = torch.zeros((N_all,), dtype=torch.bool, device=dev)
+                    kp_small[rows_small[mask_l]] = True
+                    featc, fvc = cellgrid.fpfh_pass(cellgrid.set_normals(pfs, normal_sm), r_l,
+                                                    kp=kp_small, kp_rows=rows_small)
             levels.append((featc, mask_l & fvc))
         return sj, g, kpv, li_kp, levels, n_sms
 
@@ -972,9 +981,11 @@ def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt
         b_idx, _b_dist, b_mask, _s_dist, _s_mask = _consensus_vote(ci, cd, cm, train_xyz, iss_r)
         return b_idx[:, None], b_mask[:, None], (ci, cd, cm)
 
-    ic_st, mc_st, cand_st = vote(levels_s, min_s, levels_t, min_t, tgt_xyz[g_t], iss_radius_tgt)
-    ic_ts, mc_ts, _cand = vote(levels_t, min_t, levels_s, min_s, src_xyz[g_s], iss_radius_src)
-    _t("match_pyramid")
+    with _t("match_pyramid"), profiling.span("lgr.match.descriptor_nn"):
+        ic_st, mc_st, cand_st = vote(levels_s, min_s, levels_t, min_t, tgt_xyz[g_t],
+                                     iss_radius_tgt)
+        ic_ts, mc_ts, _cand = vote(levels_t, min_t, levels_s, min_s, src_xyz[g_s],
+                                   iss_radius_src)
     if debug is not None:
         def side_record(lmin, lmax, hist, n_sms, n_kp, sj, li_kp, found, levels):
             return dict(min_log2=lmin, max_log2=lmax, surface_rows=n_sms,
@@ -996,11 +1007,10 @@ def _pyramid_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt
     # _feature_scale_route)
     dens = torch.zeros((N_all,), dtype=torch.float32, device=dev)
     kc = max(2, min(cfg.cluster_k, n_kp_s - 1, n_kp_t - 1))
-    out = _compact_match_corr_stage(None, None, v_any_s, v_any_t, sj_s, sj_t, g_s, g_t, src_xyz,
-                                    tgt_xyz, dens, dens, distance_thr, cfg, kc,
-                                    cand=(ic_st, mc_st, ic_ts, mc_ts))
-    _t("match_corr")
-    return out
+    with _t("match_corr"):
+        return _compact_match_corr_stage(None, None, v_any_s, v_any_t, sj_s, sj_t, g_s, g_t,
+                                         src_xyz, tgt_xyz, dens, dens, distance_thr, cfg, kc,
+                                         cand=(ic_st, mc_st, ic_ts, mc_ts))
 
 
 def _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t):
@@ -1020,23 +1030,22 @@ def _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt,
     pf_t = cellgrid.plan_grid(tgt_xyz, tgt_valid, feature_radius)
 
     def side(pn, pf, iss_radius, vp, which):
-        normal, kp, dens, _sal = cellgrid.surface_iss_masked(pn, pf, normal_cell, iss_radius, vp,
-                                                             shot=shot_mode)
-        _t(f"side_{which}")
+        with _t(f"side_{which}"):
+            normal, kp, dens, _sal = cellgrid.surface_iss_masked(pn, pf, normal_cell, iss_radius,
+                                                                 vp, shot=shot_mode)
         if shot_mode:
             return normal, kp, dens, None, kp, None
-        n = int(kp.sum())
-        pf_n = cellgrid.set_normals(pf, normal)
-        if 0 < n <= N_all // 2:
-            m = _pad_quantum(n)
-            sj = _compact_rows(kp, n, m)
-            featc, fvc = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp, kp_rows=sj)
-            _t(f"fpfh_{which}")
-            v = (torch.arange(m, device=kp.device) < n) & fvc
-            return normal, kp, dens, None, None, (n, sj, sj.clamp_max(N_all - 1), v, featc)
-        feat, fv = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp)
-        _t(f"fpfh_{which}")
-        return normal, kp, dens, feat, fv & kp, None
+        with _t(f"fpfh_{which}"):
+            n = int(kp.sum())
+            pf_n = cellgrid.set_normals(pf, normal)
+            if 0 < n <= N_all // 2:
+                m = _pad_quantum(n)
+                sj = _compact_rows(kp, n, m)
+                featc, fvc = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp, kp_rows=sj)
+                v = (torch.arange(m, device=kp.device) < n) & fvc
+                return normal, kp, dens, None, None, (n, sj, sj.clamp_max(N_all - 1), v, featc)
+            feat, fv = cellgrid.fpfh_pass(pf_n, feature_radius, kp=kp)
+            return normal, kp, dens, feat, fv & kp, None
 
     src_normal, _src_kp, dens_s, fq, fq_valid, ec_q = side(pn_s, pf_s, iss_radius_src, vp_src,
                                                            "src")
@@ -1064,15 +1073,16 @@ def _unmasked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tg
     shot_mode = cfg.descriptor == "shot"
 
     def side(xyz, valid, iss_radius, vp, which):
-        pn = cellgrid.plan_grid(xyz, valid, max(normal_cell, iss_radius))
-        pf = cellgrid.plan_grid(xyz, valid, feature_radius)
-        out = cellgrid.surface_iss_cells(pn, normal_cell, iss_radius, vp)
-        _t(f"side_{which}")
+        with _t(f"side_{which}"):
+            pn = cellgrid.plan_grid(xyz, valid, max(normal_cell, iss_radius))
+            pf = cellgrid.plan_grid(xyz, valid, feature_radius)
+            out = cellgrid.surface_iss_cells(pn, normal_cell, iss_radius, vp)
         if shot_mode:
             # SHOT runs at the compacted keypoint rows, in the matching region
             return out, pf, None, valid & out["kp"]
-        feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(pf, out["normal"]), feature_radius)
-        _t(f"fpfh_{which}")
+        with _t(f"fpfh_{which}"):
+            feat, fv = cellgrid.fpfh_pass(cellgrid.set_normals(pf, out["normal"]),
+                                          feature_radius)
         return out, pf, feat, fv & out["kp"]
 
     s, pf_s, fq, fq_valid = side(src_xyz, src_valid, iss_radius_src, vp_src, "src")
@@ -1091,20 +1101,20 @@ def _grid_hash_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_t
     (normal_cell, _dens_s, _dens_t, iss_radius_src, iss_radius_tgt, feature_radius,
      _thr) = radii
     shot_mode = cfg.descriptor == "shot"
-    src_normal, src_kp, dens_s = _side_stage(src_xyz, src_valid, normal_cell, iss_radius_src, cfg,
-                                             vp_src)
-    _t("side_src")
-    tgt_normal, tgt_kp, dens_t = _side_stage(tgt_xyz, tgt_valid, normal_cell, iss_radius_tgt, cfg,
-                                             vp_tgt)
-    _t("side_tgt")
+    with _t("side_src"):
+        src_normal, src_kp, dens_s = _side_stage(src_xyz, src_valid, normal_cell, iss_radius_src,
+                                                 cfg, vp_src)
+    with _t("side_tgt"):
+        tgt_normal, tgt_kp, dens_t = _side_stage(tgt_xyz, tgt_valid, normal_cell, iss_radius_tgt,
+                                                 cfg, vp_tgt)
     if shot_mode:
         fq = ft = None
         fq_valid, ft_valid = src_valid & src_kp, tgt_valid & tgt_kp
     else:
-        fq, fq_valid = _fpfh_fixed(src_xyz, src_normal, src_valid, src_kp, feature_radius)
-        _t("fpfh_src")
-        ft, ft_valid = _fpfh_fixed(tgt_xyz, tgt_normal, tgt_valid, tgt_kp, feature_radius)
-        _t("fpfh_tgt")
+        with _t("fpfh_src"):
+            fq, fq_valid = _fpfh_fixed(src_xyz, src_normal, src_valid, src_kp, feature_radius)
+        with _t("fpfh_tgt"):
+            ft, ft_valid = _fpfh_fixed(tgt_xyz, tgt_normal, tgt_valid, tgt_kp, feature_radius)
     return _match_region((src_xyz, src_valid, src_normal, None),
                          (tgt_xyz, tgt_valid, tgt_normal, None), fq, fq_valid, ft, ft_valid,
                          None, None, dens_s, dens_t, radii, cfg, _t)
@@ -1143,6 +1153,46 @@ def _iss_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cf
     return _masked_route(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
 
 
+_KEYPOINT_STAGES = ("fs_maps", "plan", "side_src", "side_tgt", "bucket")
+
+
+def _stage_span(label: str) -> str:
+    """The span of a register_pair_staged stage: lgr.keypoints.<label>,
+    lgr.descriptors.<label> (fpfh_* / shot_*), lgr.solver (ransac, gror) or
+    lgr.match (match_*, corr)."""
+    if label in _KEYPOINT_STAGES:
+        return f"lgr.keypoints.{label}"
+    if label.startswith(("fpfh_", "shot_")):
+        return f"lgr.descriptors.{label}"
+    if label in ("ransac", "gror"):
+        return "lgr.solver"
+    return "lgr.match"
+
+
+def _stage_clock(stage_times: dict | None, dev: torch.device):
+    """register_pair_staged's stages: `with stage(label):` runs the block
+    in its span (_stage_span) and, when stage_times is a dict, synchronises
+    at its end and adds the wall seconds since the previous stage ended (or
+    the call began) under `label`; a stage that raises adds nothing."""
+    if stage_times is None:
+        return lambda label: profiling.span(_stage_span(label))
+    last = [time.perf_counter()]
+
+    @contextlib.contextmanager
+    def stage(label):
+        with profiling.span(_stage_span(label)):
+            yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        # summed per label: after a failed feature-scale gate the classic
+        # route's side stages follow the feature-scale route's
+        stage_times[label] = stage_times.get(label, 0.0) + now - last[0]
+        last[0] = now
+
+    return stage
+
+
 def register_pair_staged(
     src_xyz, src_valid, tgt_xyz, tgt_valid, generator: torch.Generator,
     normal_cell, density_cell_src, density_cell_tgt,
@@ -1160,6 +1210,9 @@ def register_pair_staged(
     values beside its transformation tensor.
     When `stage_times` is a dict, each stage is synchronised and its wall
     seconds added there under the JAX package's LGR_STAGE_TIMING labels.
+    The call is the span lgr.pair, each stage a span inside it
+    (_stage_clock) beside the keypoint-count read (lgr.keypoints.counts)
+    and the export (lgr.match.export), and it counts one `pairs`.
     When `pyramid_debug` is a dict and the staged pyramid runs, it receives
     that route's record (_pyramid_route; flagship.PYRAMID_DEBUG in JAX).
     Returns the JAX result dict (transformation, metric, inliers,
@@ -1178,40 +1231,31 @@ def register_pair_staged(
             f"register_pair_staged requires equal padded capacities "
             f"(got src {src_xyz.shape[0]} vs tgt {tgt_xyz.shape[0]})"
         )
-    dev = src_xyz.device
-    last = [time.perf_counter()]
-
-    def _t(label):
-        if stage_times is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            # summed per label: after a failed feature-scale gate the classic
-            # route's side stages follow the feature-scale route's
-            stage_times[label] = stage_times.get(label, 0.0) + now - last[0]
-            last[0] = now
-
-    radii = tuple(float(v) for v in (normal_cell, density_cell_src, density_cell_tgt,
-                                     iss_radius_src, iss_radius_tgt, feature_radius,
-                                     distance_thr))
-    args = (src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
-    if not cfg.use_cell_fpfh:
-        j, keep, thr = _grid_hash_route(*args)
-    elif cfg.use_iss:
-        j, keep, thr = _iss_route(*args, pyramid_debug)
-    else:
-        j, keep, thr = _any_route(*args)
-    if cfg.alignment == "gror":
-        res = _gror_stage(src_xyz, tgt_xyz[j], keep, radii[6], cfg)
-        _t("gror")
-    else:
-        res = ransac_solve(src_xyz, tgt_xyz[j], thr, keep, generator, cfg)
-        _t("ransac")
-    if return_correspondences:
-        n_c = int(keep.sum())
-        res["correspondences"] = _corr_export(
-            j, keep, thr, min(_pad_quantum(max(n_c, 1)), keep.shape[0]))
-    return res
+    profiling.count("pairs")
+    with profiling.span("lgr.pair"):
+        _t = _stage_clock(stage_times, src_xyz.device)
+        radii = tuple(float(v) for v in (normal_cell, density_cell_src, density_cell_tgt,
+                                         iss_radius_src, iss_radius_tgt, feature_radius,
+                                         distance_thr))
+        args = (src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg, _t)
+        if not cfg.use_cell_fpfh:
+            j, keep, thr = _grid_hash_route(*args)
+        elif cfg.use_iss:
+            j, keep, thr = _iss_route(*args, pyramid_debug)
+        else:
+            j, keep, thr = _any_route(*args)
+        if cfg.alignment == "gror":
+            with _t("gror"):
+                res = _gror_stage(src_xyz, tgt_xyz[j], keep, radii[6], cfg)
+        else:
+            with _t("ransac"):
+                res = ransac_solve(src_xyz, tgt_xyz[j], thr, keep, generator, cfg)
+        if return_correspondences:
+            with profiling.span("lgr.match.export"):
+                n_c = int(keep.sum())
+                res["correspondences"] = _corr_export(
+                    j, keep, thr, min(_pad_quantum(max(n_c, 1)), keep.shape[0]))
+        return res
 
 
 # ---------------------------------------------------------------------------
@@ -1232,14 +1276,16 @@ def _cluster_filter_rows(xyz_s, kpv_s, xyz_t, kpv_t, idx_st, mask_st, idx_ts, ma
     or the tp peers' shard merge (parallel/batch.py).  Returns (mask_st',
     dens_s', dens_t')."""
     kc = max(2, min(cfg.cluster_k, min(xyz_s.shape[0], xyz_t.shape[0]) - 1))
-    ksq, kst = _centred(xyz_s, kpv_s), _centred(xyz_t, kpv_t)
-    kq = knn_self(ksq, kpv_s, kc)
-    kt = knn_self(kst, kpv_t, kc)
-    keep_q = _consensus_keep(idx_st[:, 0], mask_st[:, 0], idx_ts[:, 0], mask_ts[:, 0], kq, kt,
-                             cfg)
-    dens_s2 = torch.where(kpv_s, _kp_density_nearest(*(a[:, :1] for a in kq)), dens_s)
-    dens_t2 = torch.where(kpv_t, _kp_density_nearest(*(a[:, :1] for a in kt)), dens_t)
-    return mask_st & keep_q[:, None], dens_s2, dens_t2
+    with profiling.span("lgr.match.gate_knn"):
+        ksq, kst = _centred(xyz_s, kpv_s), _centred(xyz_t, kpv_t)
+        kq = knn_self(ksq, kpv_s, kc)
+        kt = knn_self(kst, kpv_t, kc)
+    with profiling.span("lgr.match.consensus"):
+        keep_q = _consensus_keep(idx_st[:, 0], mask_st[:, 0], idx_ts[:, 0], mask_ts[:, 0], kq,
+                                 kt, cfg)
+        dens_s2 = torch.where(kpv_s, _kp_density_nearest(*(a[:, :1] for a in kq)), dens_s)
+        dens_t2 = torch.where(kpv_t, _kp_density_nearest(*(a[:, :1] for a in kt)), dens_t)
+        return mask_st & keep_q[:, None], dens_s2, dens_t2
 
 
 def _step_sides(src_xyz, src_valid, tgt_xyz, tgt_valid, radii, vp_src, vp_tgt, cfg):

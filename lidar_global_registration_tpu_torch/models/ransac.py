@@ -41,6 +41,7 @@ from lidar_global_registration_tpu_torch.types import (
     Cloud,
     Correspondences,
 )
+from lidar_global_registration_tpu_torch.utils import profiling
 
 MIN_NR_INLIERS = 10  # sac_prerejective_omp.cpp:8
 MIN_NR_FINAL_INLIERS = 20  # :9
@@ -161,7 +162,8 @@ def ransac_rounds(p: torch.Tensor, q: torch.Tensor, generator: torch.Generator, 
     shrinks the iteration estimate from the support; it stops after
     max_rounds or once the iterations reach min(estimate, budget).  `best`
     (metric, R, t) is the starting best, e.g. a guess hypothesis (-inf and
-    the identity when None).  One host read a round.  Returns (best metric,
+    the identity when None).  One host read a round; the rounds run are
+    added to the counter solver.rounds.  Returns (best metric,
     R f32[3, 3], t f32[3], iterations, estimate)."""
     dev = p.device
     best_metric, best_R, best_t = best if best is not None else (
@@ -178,6 +180,7 @@ def ransac_rounds(p: torch.Tensor, q: torch.Tensor, generator: torch.Generator, 
         i += 1
         iters += float(B)
         est = min(est, est_new)
+    profiling.count("solver.rounds", i)
     return best_metric, best_R, best_t, iters, est
 
 
