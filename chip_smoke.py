@@ -20,6 +20,11 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       K7 at the edges of its tiling (D in {1, 33, 135, 352, 512, 1960},
       nq in {1, 127, 129, 22203}, its bf16 form at D = 33 and 352,
       duplicate rows across every split of the train range, no valid row);
+      K8 at the edges of its plan (check_knn_edges: the card cases of
+      tests/test_torch_knn_xyz.py, sizes 1 to 24,576 with padded tails, k
+      2 / 40 / 64, k above the valid count, no valid row, a shard with its
+      offset, duplicates, a k-th-place tie across the key order, clusters
+      far apart, a cube with rows in its top corner cell);
       the bench's 65,536-point pair, one warm-up and three timed repeats; a
       4,096-point pair through the kernels and the plain versions; the JAX
       package's one-graph entry points on the 65,536-point pair
@@ -129,6 +134,9 @@ source and drives the ported routes of `models.flagship.register_pair_staged`:
       afresh at 4,096 points; each row's timed repeats must have launched
       the kernel forms of its route and no other, and the merged flagship
       line must carry a rate for both rows and a vs_baseline.
+  K8 at the benchmark cells' keypoint shapes (knn_records): pooled pair 0 of
+      iss_fpfh.10m and iss_fpfh.4m registered once each, both sides' gate
+      k-NN held against matchers._topk_l2 and timed beside it.
   The ('dp', 'tp') mesh (parallel/mesh.py, parallel/batch.py): K2-K4's
       slot-list forms at each half of the 1M scan's host ISS plan and of the
       64k pair's, each equal to the full pass's rows and held against its
@@ -594,6 +602,96 @@ def check_nn_edges(dev):
         log(f"# K7 split nq={nq}: {S} ranges of {per} tiles, lowest index at every cut")
     log("# K7 edges ok: D 1/33/135/352/512/1960 x nq 1/127/129/22203 vs plain (bf16 form at "
         "D 33/352), ties, no valid row")
+
+
+def check_knn_edges():
+    """K8 against its plain version at the edges of its tiles, keys and
+    lists: the card cases of tests/test_torch_knn_xyz.py, in a pytest
+    process of their own on this card."""
+    proc = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_knn_xyz.py", "-m",
+                           "card", "--noconftest", "-q", "-p", "no:cacheprovider"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+    assert proc.returncode == 0, f"K8's card tests: exit code {proc.returncode}"
+    assert " passed" in tail and "skipped" not in tail, f"K8's card tests: {tail}"
+    log(f"# K8 edges ok: the card cases of tests/test_torch_knn_xyz.py: {tail}")
+
+
+def knn_records(dev) -> list[dict]:
+    """K8 at the shapes of the benchmark's two cells (benchmark/traffic):
+    pooled pair 0 of each cell's scene pre-downsampled and registered once,
+    both sides' gate k-NN captured; each side held against its plain
+    version, timed (the wrapper's whole call: keys, sorts, pack, scan,
+    merge) beside _topk_l2 and the bound (10 nq nt operations)."""
+    import torch
+
+    from benchmark import check, manifest
+    from benchmark import traffic as bench_traffic
+    from lidar_global_registration_tpu_torch.models import flagship as fl
+    from lidar_global_registration_tpu_torch.ops import matchers, nn_l2
+    from lidar_global_registration_tpu_torch.ops.density import derive_radii
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_knn_xyz import against_plain
+
+    records = []
+    for cell_name, tag in (("iss_fpfh.10m", "10m"), ("iss_fpfh.4m", "4m")):
+        cell = manifest.load_cell(cell_name)
+        spec, conf = cell.traffic, cell.config
+        n = int(spec["points_per_side"])
+        tr = bench_traffic.build(spec, 21, dev)
+        ones = torch.ones((n,), dtype=torch.bool, device=dev)
+        raw = derive_radii(tr.src, tr.tgt_world)
+        f = float(conf["pre_downsample_voxel_per_density"])
+        pair = tr.pairs[0]
+        sx, sv, tx, tv = fl.pre_downsample_pair(tr.src, ones, pair.tgt, ones,
+                                                f * raw["density_src"], f * raw["density_tgt"],
+                                                aabb=pair.aabb)
+        radii = derive_radii(sx, tx, sv, tv)
+        got, wrapped = [], matchers.knn_xyz_cuda
+
+        def hook(*args):
+            got.append(args)
+            return wrapped(*args)
+
+        matchers.knn_xyz_cuda = hook
+        nn_l2.knn_xyz_cuda.launches = 0
+        try:
+            out = fl.register_pair_staged(
+                sx, sv, tx, tv, torch.Generator(device=dev).manual_seed(pair.ransac_seed),
+                *(float(radii[key]) for key in check.RADII_KEYS), vp_src=tr.vp_src,
+                vp_tgt=pair.vp_tgt, cfg=fl.FlagshipConfig(**conf["flagship"]))
+            converged = bool(out["converged"])
+            launches = nn_l2.knn_xyz_cuda.launches
+        finally:
+            matchers.knn_xyz_cuda = wrapped
+        assert len(got) == launches == 2, f"K8 in one {cell_name} pair: {len(got)} calls, " \
+            f"{launches} launches"
+        for side, (q, t, qv, tv_, k, excl, off, diag) in zip(("src", "tgt"), got):
+            # d2 within 4 float32 ulps of the largest |q|^2 + |t|^2 (the
+            # sites are 60 and 95 m wide; 5e-4 at the tests' 40 m)
+            big = 2 * float(torch.where(qv[:, None], q * q, 0).sum(1).max())
+            kd, ki, err = against_plain(q, t, qv, tv_, k, excl, off, diag,
+                                        tol=max(5e-4, 2.0 ** -21 * big))
+            ids = torch.arange(q.shape[0], device=dev)
+            rec = dict(
+                name=f"knn_xyz_{tag}_{side}", route="cuda",
+                source="lidar_global_registration_tpu_torch/csrc/knn_xyz.cu", replaces=None,
+                max_abs_err=err, shape=[int(q.shape[0]), int(t.shape[0]), 3], k=int(k),
+                valid=int(qv.sum()), launches=launches,
+                ms=cuda_ms(lambda: nn_l2.knn_xyz_cuda(q, t, qv, tv_, k, excl, off, diag), 20),
+                plain_ms=cuda_ms(lambda: matchers._topk_l2(q, t, tv_, k, ids, off), 3),
+                **nn_bound(q, t, tv_, kd, ki), library_ms=None)
+            records.append(rec)
+            log(f"# K8 {cell_name} {side}: {rec['shape'][0]} rows ({rec['valid']} valid), k {k}, "
+                f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f}), "
+                f"max d2 err {err:.2e}; pair converged={converged}")
+        del tr, sx, sv, tx, tv, out, got
+        torch.cuda.empty_cache()
+    return records
 
 
 def check_large(dev, a, b, radii):
@@ -1698,8 +1796,9 @@ def pyramid_phase(dev):
     from lidar_global_registration_tpu_torch.ops import nn_l2
 
     iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
-    fpfh_k = (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda, nn_l2.nn_l2_cuda)
-    shot_k = (cg.surface_cuda, *iss_k, nn_l2.nn_l2_cuda)
+    fpfh_k = (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda, nn_l2.nn_l2_cuda,
+              nn_l2.knn_xyz_cuda)
+    shot_k = (cg.surface_cuda, *iss_k, nn_l2.nn_l2_cuda, nn_l2.knn_xyz_cuda)
     records, launches = [], {}
     for n, tag, repeats, rule in ((N_PYR, "1m", REPEATS, True), (N_PYR_LARGE, "2m", 1, False)):
         t0 = time.perf_counter()
@@ -1758,7 +1857,7 @@ WRAPPER_OF = {
 WRAPPERS = ("surface_cuda", "surface_at_cuda", "iss_count_cuda", "iss_saliency_cuda",
             "iss_nms_cuda", "iss_count_at_cuda", "iss_saliency_at_cuda", "iss_nms_at_cuda",
             "spfh_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda", "nn_l2_cuda",
-            "nn_l2_bf16_cuda")
+            "nn_l2_bf16_cuda", "knn_xyz_cuda")
 
 
 def _wrapper(name: str):
@@ -1766,7 +1865,7 @@ def _wrapper(name: str):
     while one is in force: the wrapper's body then counts into the hook)."""
     from lidar_global_registration_tpu_torch.ops import cellgrid, nn_l2
 
-    return getattr(nn_l2 if name.startswith("nn_l2") else cellgrid, name)
+    return getattr(nn_l2 if name.startswith(("nn_l2", "knn_xyz")) else cellgrid, name)
 
 
 def zero_counters() -> None:
@@ -1813,11 +1912,13 @@ def recorder(got: dict, specs):
 
 CLI_DIR = ROOT / "chiprun_out" / "cli"
 CLI_TIMEOUT = 600  # seconds for one command of the CLI phase
-# the wrappers of K1-K7 on the CLI path (K1 full, K5 `kp`, K6 `kp_rows`), and
-# the forms it never runs (K1's slot list, K5's and K6's full passes)
+# the wrappers of K1-K8 on the CLI path (K1 full, K5 `kp`, K6 `kp_rows`, K8
+# the cluster gate), and the forms it never runs (K1's slot list, K5's and
+# K6's full passes)
 CLI_WRAPPERS = (("surface", "surface_cuda"), ("iss_count", "iss_count_cuda"),
                 ("iss_saliency", "iss_saliency_cuda"), ("iss_nms", "iss_nms_cuda"),
-                ("spfh", "spfh_at_cuda"), ("combine", "combine_at_cuda"), ("nn_l2", "nn_l2_cuda"))
+                ("spfh", "spfh_at_cuda"), ("combine", "combine_at_cuda"), ("nn_l2", "nn_l2_cuda"),
+                ("knn_xyz", "knn_xyz_cuda"))
 CLI_OFF = ("surface_at_cuda", "spfh_cuda", "combine_cuda", "nn_l2_bf16_cuda")
 
 
@@ -1936,11 +2037,12 @@ HOST_H4 = "descriptor: usc\nlrf: gt\n"
 HOST_H5 = "descriptor: fpfh\nlrf: gt\nmatching: one_sided\n"
 HOST_H6 = "lrf: gravity\nbf16_matching: true\n"
 # the forms the host process launches (K2-K4, K5's full pass, K7 in both
-# forms; K1 in H6's staged pyramid) and those it never runs (K1's slot list:
-# the loader's and the host levels' normals are kNN; K5's subset form: H6 is
-# SHOT; K6: the host keypoints are not rows of a level surface)
+# forms; K1 and K8 in H6's staged pyramid, K8 its cluster gate) and those it
+# never runs (K1's slot list: the loader's and the host levels' normals are
+# kNN; K5's subset form: H6 is SHOT; K6: the host keypoints are not rows of
+# a level surface)
 HOST_ON = ("iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda", "spfh_cuda", "nn_l2_cuda",
-           "nn_l2_bf16_cuda", "surface_cuda")
+           "nn_l2_bf16_cuda", "surface_cuda", "knn_xyz_cuda")
 HOST_OFF = ("surface_at_cuda", "spfh_at_cuda", "combine_cuda", "combine_at_cuda")
 HOST_ROWS = [("shot", "ransac"), ("fpfh", "ransac"), ("fpfh", "gror"), ("rops", "ransac"),
              ("usc", "ransac"), ("fpfh", "ransac"), ("shot", "ransac")]
@@ -2391,7 +2493,7 @@ def mesh_cfgs() -> dict:
 
 
 # the forms each configuration's tp step launches; every other stays at 0
-MESH_NEED = {"iss": AT_FORMS + ("spfh_at_cuda", "nn_l2_cuda"),
+MESH_NEED = {"iss": AT_FORMS + ("spfh_at_cuda", "nn_l2_cuda", "knn_xyz_cuda"),
              "any": ("spfh_at_cuda", "nn_l2_cuda")}
 
 
@@ -3387,7 +3489,7 @@ BENCH_CPU_N = "4096"  # the CPU baselines' size here (the bench's default: 65,53
 BENCH_NEED = {
     "64k keypoint-any": ("surface_cuda", "spfh_cuda", "combine_cuda", "nn_l2_cuda"),
     "10M ISS": ("surface_cuda", "iss_count_cuda", "iss_saliency_cuda", "iss_nms_cuda",
-                "spfh_at_cuda", "combine_at_cuda", "nn_l2_cuda"),
+                "spfh_at_cuda", "combine_at_cuda", "nn_l2_cuda", "knn_xyz_cuda"),
 }
 
 
@@ -3473,9 +3575,10 @@ def iss_phase(dev):
                + check_unmasked(S))
 
     iss_k = (cg.iss_count_cuda, cg.iss_saliency_cuda, cg.iss_nms_cuda)
+    nn_k = (nn_l2.nn_l2_cuda, nn_l2.knn_xyz_cuda)  # K7; K8 the cluster gate
     launches = {}
     launches["fpfh"] = iss_runs(S, iss_cfg(), (cg.surface_cuda, *iss_k, cg.spfh_at_cuda,
-                                               cg.combine_at_cuda, nn_l2.nn_l2_cuda),
+                                               cg.combine_at_cuda, *nn_k),
                                 "ISS", REPEATS, rule=True)
     # sizes of one repeat's working set (outside the timed region)
     voxel_f = float(np.sqrt(np.pi * radii["feature"] ** 2 / FEATURE_NR_POINTS))
@@ -3486,27 +3589,27 @@ def iss_phase(dev):
         log(f"#   {which}: {int(v.sum())} working points, {n_kp} keypoints, "
             f"voxel surface {n_sm} rows (voxel_f {voxel_f:.4f})")
     launches["shot"] = iss_runs(S, iss_cfg(**SHOT_CFG), (cg.surface_cuda, *iss_k,
-                                                         nn_l2.nn_l2_cuda),
+                                                         *nn_k),
                                 "SHOT", REPEATS, rule=True)
     launches["masked_fpfh"] = iss_runs(
         S, iss_cfg(feature_scale=False), (cg.surface_at_cuda, *iss_k, cg.spfh_at_cuda,
-                                          cg.combine_at_cuda, nn_l2.nn_l2_cuda),
+                                          cg.combine_at_cuda, *nn_k),
         "classic masked FPFH", 1, rule=False)
     launches["masked_shot"] = iss_runs(
         S, iss_cfg(feature_scale=False, **SHOT_CFG), (cg.surface_at_cuda, *iss_k,
-                                                      nn_l2.nn_l2_cuda),
+                                                      *nn_k),
         "classic masked SHOT", 1, rule=False)
     launches["unmasked_fpfh"] = iss_runs(
         S, iss_cfg(masked_features=False), (cg.surface_cuda, *iss_k, cg.spfh_cuda,
-                                            cg.combine_cuda, nn_l2.nn_l2_cuda),
+                                            cg.combine_cuda, *nn_k),
         "unmasked FPFH", 1, rule=False)
     launches["unmasked_shot"] = iss_runs(
         S, iss_cfg(masked_features=False, **SHOT_CFG), (cg.surface_cuda, *iss_k,
-                                                        nn_l2.nn_l2_cuda),
+                                                        *nn_k),
         "unmasked SHOT", 1, rule=False)
     launches["gror"] = iss_runs(S, iss_cfg(alignment="gror"),
                                 (cg.surface_cuda, *iss_k, cg.spfh_at_cuda, cg.combine_at_cuda,
-                                 nn_l2.nn_l2_cuda), "GROR", REPEATS, rule=True)
+                                 *nn_k), "GROR", REPEATS, rule=True)
     return records, launches
 
 
@@ -3604,11 +3707,13 @@ def main() -> int:
     check_cell_edges(dev)
     check_iss_edges(dev)
     check_nn_edges(dev)
+    check_knn_edges()
 
     counters = (cellgrid.surface_cuda, cellgrid.spfh_cuda, cellgrid.combine_cuda,
                 nn_l2.nn_l2_cuda)
     for c in counters:
         c.launches = 0
+    nn_l2.knn_xyz_cuda.launches = 0  # keypoint-any: no cluster gate, so no K8
     a_dev = torch.from_numpy(a).to(dev)
     out = register(dev, a_dev, b, vp_a, vp_b, radii, SEED)  # warm-up
     torch.cuda.synchronize()
@@ -3629,6 +3734,7 @@ def main() -> int:
     launches = [c.launches for c in counters]
     log(f"# launches in the main runs: {dict(zip([r['name'] for r in records], launches))}")
     assert all(n > 0 for n in launches), "a kernel of the path was never launched"
+    assert nn_l2.knn_xyz_cuda.launches == 0, "K8 ran on the keypoint-any route"
     for rec, n in zip(records, launches):
         rec["launches"] = n
 
@@ -3743,6 +3849,8 @@ def main() -> int:
     iss_small_pair(dev, "SHOT", **SHOT_CFG)
     iss_small_pair(dev, "GROR", alignment="gror")
     elapsed("small pairs")
+    records += knn_records(dev)  # K8 at the benchmark cells' keypoint shapes
+    elapsed("K8 at the cells' shapes")
 
     log(f"{gpu}")
     log(json.dumps({"kernels": records}))

@@ -318,7 +318,7 @@ def _device_report(dev: torch.device) -> None:
                 cellgrid.iss_saliency_cuda, cellgrid.iss_nms_cuda, cellgrid.iss_count_at_cuda,
                 cellgrid.iss_saliency_at_cuda, cellgrid.iss_nms_at_cuda, cellgrid.spfh_cuda,
                 cellgrid.spfh_at_cuda, cellgrid.combine_cuda, cellgrid.combine_at_cuda,
-                nn_l2.nn_l2_cuda, nn_l2.nn_l2_bf16_cuda)
+                nn_l2.nn_l2_cuda, nn_l2.nn_l2_bf16_cuda, nn_l2.knn_xyz_cuda)
     launches = {w.__name__: w.launches for w in wrappers}
     print(f"# device: peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; "
           f"launches {json.dumps(launches)}", flush=True)

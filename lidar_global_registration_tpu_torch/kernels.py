@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_L = ctypes.c_longlong
 # C signatures (all return int = cudaError_t)
 SIGNATURES = {
     # pts, cell_of, cols, oid, slots (or 0), m, r2, out8, nn_d, nn_id, stream
@@ -63,6 +64,13 @@ SIGNATURES = {
     "lgr_nn_l2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # d, blocks_per_sm (int*)
     "lgr_nn_l2_blocks_per_sm": (_I, _P),
+    # q, qv, nq, t (or 0: the same set), tv, nt, part, qkey, tkey, stream
+    "lgr_knn_xyz_keys": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    # q, perm_q, qkey_s, nq, t, tv, perm_t, tkey_s, nt, nt_pad, exclude_ids
+    # (or 0), id_offset, diag, k, t4, tid, box, home, nt_valid, best_d,
+    # best_i, stream
+    "lgr_knn_xyz": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P, _P, _P,
+                    _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

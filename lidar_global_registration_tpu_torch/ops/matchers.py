@@ -7,9 +7,12 @@ ops/nn_l2.py) and for any descriptor width; on a train shard it returns
 local rows, and the caller adds the shard's offset (parallel/batch.py).
 k > 1 and the same-set self exclusion (`exclude_diag`, or `exclude_ids`
 with `id_offset` on a shard of the set: the cluster matcher's keypoint kNN)
-are an exact tiled top-k in plain PyTorch: `torch.topk` over query tiles
-of the Gram-trick distance matrix, with the JAX package's BIG masking and
-self exclusion by id (matchers.py:55-77, 92-149).  The JAX package's `approx=True`
+are an exact top-k: over xyz rows on the card (width 3, k <= 64) the
+kernel K8 of ops/nn_l2.py (nn_l2.takes_knn_xyz: the cluster gate's
+keypoint kNN, ties to the lowest index); every other call, and every call
+on the CPU, the tiled top-k in plain PyTorch, `_topk_l2`: `torch.topk` over
+query tiles of the Gram-trick distance matrix, with the JAX package's BIG
+masking and self exclusion by id (matchers.py:55-77, 92-149).  The JAX package's `approx=True`
 (per-tile `lax.approx_max_k`, a TPU PartialReduce) is not a Pallas kernel;
 here the set is always exact, as JAX computes it on the CPU.
 
@@ -23,7 +26,13 @@ import torch
 
 from lidar_global_registration_tpu_torch.ops import cellgrid
 from lidar_global_registration_tpu_torch.ops.grid import radius_neighbors
-from lidar_global_registration_tpu_torch.ops.nn_l2 import BIG, bf16_round, nn_l2
+from lidar_global_registration_tpu_torch.ops.nn_l2 import (
+    BIG,
+    bf16_round,
+    knn_xyz_cuda,
+    nn_l2,
+    takes_knn_xyz,
+)
 
 _TOPK_SLOTS = 1 << 27  # distance slots per query tile of the top-k
 
@@ -70,13 +79,19 @@ def match_bf(query: torch.Tensor, train: torch.Tensor, qvalid: torch.Tensor,
     (i64[Nq]) with id_offset: same-set k-NN where `train` is a shard of the
     query set (its rows from id_offset on); a train row is left out for
     query q when id_offset + its local id == exclude_ids[q].  exclude_diag
-    is the unsharded case (exclude_ids = the query rows, id_offset 0)."""
-    if exclude_diag:
-        exclude_ids = torch.arange(query.shape[0], device=query.device)
-    if k == 1 and exclude_ids is None:
+    is the unsharded case (exclude_ids = the query rows, id_offset 0).
+    Over xyz rows on the card (takes_knn_xyz) k > 1 and the same-set k-NN
+    run K8, whose ties go to the lowest index."""
+    if k == 1 and exclude_ids is None and not exclude_diag:
         idx, dist, mask = nn_l2(query, train, qvalid, tvalid, tile=tile, bf16=bf16)
         return idx[:, None], dist[:, None], mask[:, None]
-    best_d, best_i = _topk_l2(query, train, tvalid, k, exclude_ids, int(id_offset), bf16)
+    if takes_knn_xyz(query, k, bf16):
+        best_d, best_i = knn_xyz_cuda(query, train, qvalid, tvalid, k, exclude_ids,
+                                      int(id_offset), exclude_diag)
+    else:
+        if exclude_diag:
+            exclude_ids = torch.arange(query.shape[0], device=query.device)
+        best_d, best_i = _topk_l2(query, train, tvalid, k, exclude_ids, int(id_offset), bf16)
     mask = (best_d < BIG) & qvalid[:, None]
     dist = torch.where(mask, best_d, BIG).clamp_min(0.0).sqrt()
     return torch.where(mask, best_i, 0), dist, mask

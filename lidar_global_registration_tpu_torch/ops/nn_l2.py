@@ -1,4 +1,5 @@
-"""Exact 1-NN in descriptor space (lidar_global_registration_tpu/ops/pallas/topk_l2.py).
+"""Exact 1-NN in descriptor space (lidar_global_registration_tpu/ops/pallas/topk_l2.py),
+and the exact k-NN of xyz rows (K8).
 
 d2 = |q|^2 + |t|^2 - 2 q.t; the running argmin keeps the lowest index among
 equal minima, and an invalid train row carries |t|^2 = BIG so it never
@@ -15,6 +16,12 @@ bfloat16 and back; a product of two bfloat16 values is exact in float32, so
 the kernel's arithmetic stays IEEE float32 and computes the JAX function up
 to the order of the sums.  No bfloat16 matmul is called: on CUDA its output
 would be rounded to bfloat16.
+
+K8 (csrc/knn_xyz.cu, `knn_xyz_cuda`) is the exact k-NN of xyz rows that
+matchers.match_bf sends to the card (`takes_knn_xyz`): the cluster gate's
+same-set keypoint k-NN.  It keeps matchers._topk_l2's contract, its plain
+version: the k train rows least by (d2, index) per query, the same
+float32 Gram-trick d2, invalid rows and the query's own row left out.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import ctypes
 import torch
 
 from lidar_global_registration_tpu_torch import kernels
+from lidar_global_registration_tpu_torch.utils import profiling
 
 BIG = 3.0e38
 
@@ -176,3 +184,75 @@ def nn_l2(query, train, qvalid, tvalid, tile: int = 4096, bf16: bool = False):
     mask = qvalid & (d2 < BIG / 2) & (idx < train.shape[0])
     dist = torch.where(mask, d2, BIG).clamp_min(0.0).sqrt()
     return torch.where(mask, idx, 0), dist, mask
+
+
+KNN_MAX_K = 64  # the longest list K8 keeps for a query
+KNN_QUERIES = 32  # queries per K8 block
+
+
+def takes_knn_xyz(query, k: int, bf16: bool = False) -> bool:
+    """Whether matchers.match_bf sends a k-NN to K8, read from the call's
+    input alone: rows on a CUDA device, three wide (points, not
+    descriptors), 1 <= k <= KNN_MAX_K, and not the bf16 matcher."""
+    return bool(query.is_cuda) and query.shape[1] == 3 and 1 <= k <= KNN_MAX_K and not bf16
+
+
+def knn_xyz_cuda(query, train, qvalid, tvalid, k: int, exclude_ids=None, id_offset: int = 0,
+                 exclude_diag: bool = False):
+    """K8 · csrc/knn_xyz.cu: (best d2 f32[Nq, k] ascending, best index
+    i64[Nq, k]) of xyz rows, the k train rows least by (d2, index) for
+    each valid query; invalid train rows and the query's own row never
+    win (exclude_ids i64[Nq] with id_offset: the train row whose
+    id_offset + local id is the query's id; exclude_diag: exclude_ids =
+    the query rows); slots beyond the rows found, and invalid queries,
+    hold (BIG, 0).  matchers._topk_l2's contract, as matchers.match_bf
+    reads it.  Launches: the keys, a sort of each set (one when train is
+    query and tvalid is qvalid), the pack and the scan; no host
+    synchronisation."""
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"K8 keeps 1 to {KNN_MAX_K} neighbours, got k = {k}")
+    dev = query.device
+    Nq, Nt = query.shape[0], train.shape[0]
+    same = train is query and tvalid is qvalid
+    query, train = query.contiguous(), train.contiguous()
+    qvalid, tvalid = qvalid.contiguous(), tvalid.contiguous()
+    kernels.check(query, torch.float32, (Nq, 3), "query")
+    kernels.check(train, torch.float32, (Nt, 3), "train")
+    kernels.check(qvalid, torch.bool, (Nq,), "qvalid")
+    kernels.check(tvalid, torch.bool, (Nt,), "tvalid")
+    if Nq == 0 or Nt == 0:
+        return (torch.full((Nq, k), BIG, dtype=torch.float32, device=dev),
+                torch.zeros((Nq, k), dtype=torch.int64, device=dev))
+    knn_xyz_cuda.launches += 1
+    profiling.count("match.knn_xyz")
+    excl = None
+    if exclude_ids is not None and not exclude_diag:
+        excl = exclude_ids.to(device=dev, dtype=torch.int64).contiguous()
+        kernels.check(excl, torch.int64, (Nq,), "exclude_ids")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty((64, 6), dtype=torch.float32, device=dev)  # the keys' partial boxes
+    qkey = torch.empty((Nq,), dtype=torch.int16, device=dev)
+    tkey = qkey if same else torch.empty((Nt,), dtype=torch.int16, device=dev)
+    kernels.launch("lgr_knn_xyz_keys", query.data_ptr(), qvalid.data_ptr(), Nq,
+                   None if same else train.data_ptr(), tvalid.data_ptr(), Nt, part.data_ptr(),
+                   qkey.data_ptr(), tkey.data_ptr(), stream)
+    qkey_s, perm_q = torch.sort(qkey)
+    tkey_s, perm_t = (qkey_s, perm_q) if same else torch.sort(tkey)
+    nt_pad = max(-(-Nt // TILE), 1) * TILE
+    t4 = torch.empty((nt_pad, 4), dtype=torch.float32, device=dev)
+    tid = torch.empty((nt_pad,), dtype=torch.int32, device=dev)
+    box = torch.empty((nt_pad // 64, 4), dtype=torch.float32, device=dev)
+    home = torch.empty((-(-Nq // KNN_QUERIES),), dtype=torch.int32, device=dev)
+    nt_valid = torch.empty((1,), dtype=torch.int32, device=dev)
+    best_d = torch.empty((Nq, k), dtype=torch.float32, device=dev)
+    best_i = torch.empty((Nq, k), dtype=torch.int64, device=dev)
+    kernels.launch(
+        "lgr_knn_xyz", query.data_ptr(), perm_q.data_ptr(), qkey_s.data_ptr(), Nq,
+        train.data_ptr(), tvalid.data_ptr(), perm_t.data_ptr(), tkey_s.data_ptr(), Nt, nt_pad,
+        None if excl is None else excl.data_ptr(), int(id_offset), int(exclude_diag), k,
+        t4.data_ptr(), tid.data_ptr(), box.data_ptr(), home.data_ptr(), nt_valid.data_ptr(),
+        best_d.data_ptr(), best_i.data_ptr(), stream)
+    return best_d, best_i
+
+
+knn_xyz_cuda.launches = 0

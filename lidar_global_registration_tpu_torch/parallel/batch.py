@@ -20,8 +20,9 @@ structure) and computes the products of its shard of rows, N / tp of them:
   matching           the 1-NN both ways with the train side split over tp
                      (match_bf_tp: K7 on each shard, the winners merged),
                      the cluster gate's keypoint kNN the same way with the
-                     self row left out by id, then ransac_solve on every
-                     peer from the same seed.
+                     self row left out by id (K8 on each shard on the
+                     card), then ransac_solve on every peer from the same
+                     seed.
 
 Every per-row product is gathered in rank order, so each peer holds the
 whole-cloud arrays of the one-process step (models/flagship
@@ -56,9 +57,12 @@ def match_bf_tp(fq, ft_shard, fq_valid, ft_valid_shard, k: int, tile: int, bf16:
     exclude_self: same-set k-NN, a train row left out for the query whose
     row is its global id.  Returns match_bf's (idx i64[Nq, k] global rows,
     dist, mask).  At k = 1 without exclude_self (K7 on each shard) this is
-    the one-process match_bf bit for bit; otherwise so except where float32
-    d2 ties exactly across the k-th place, which the one-process path's
-    torch.topk keeps in an unspecified order."""
+    the one-process match_bf bit for bit.  The keypoint kNN (xyz rows) runs
+    K8 on the card, on each shard and in one process alike, which keeps the
+    lowest index among equal d2 as this merge does: the same rows but where
+    two unequal float32 d2 round to one distance across the k-th place.  On
+    the CPU, torch.topk keeps float32 d2 ties across the k-th place in an
+    unspecified order."""
     offset = dist.get_rank(group) * ft_shard.shape[0]
     exclude = torch.arange(fq.shape[0], device=fq.device) if exclude_self else None
     idx, d, m = matchers.match_bf(fq, ft_shard, fq_valid, ft_valid_shard, k=k, tile=tile,
