@@ -1,35 +1,40 @@
 """What decides `correct`: the numbers compared, each against its limit.
+This comparison is the same for every route; the stages that produce what
+it compares live in the cell's reference module (see below).
 
 - rule_rot_rad, rule_t_over_thr, rule_unconverged: the success rule
   (bench.py:86, 327) on EVERY pair of the window, against the pose the
   traffic applied: converged, rotation error under 0.05 rad, translation
   error under the pair's distance threshold.  The configuration states
   these limits.
-- corr_extra: over the checked pairs, the largest share of a pair's gated
-  correspondences that the reference's gated set lacks.
-- corr_missing: the largest share of the reference's gated set that the
+- corr_extra: over the checked pairs, the largest share of a pair's
+  correspondences (those the program hands its solver) that the
+  reference's set lacks.
+- corr_missing: the largest share of the reference's set that the
   program's lacks.
 
 A correspondence is a pair of working rows, one a side.  A program row is
 the reference's row of the voxel that holds it only where it lies within
 ROW_TOL_VOXELS voxels of that row's centroid; any other row matches no
-reference row, so a pre-downsample, a radius, a keypoint, a descriptor, a
-1-NN or a gate that departs from the reference moves these two numbers.
+reference row, so any stage from the pre-downsample to the last gate that
+departs from the reference moves these two numbers.
 
-Printed beside them, not compared (the control, which acts only in matrix
-products, moves none of them): ds_err_m, the largest gap from a program row
-to the reference centroid of its voxel (a row or voxel without a partner
-counts one voxel); radii_rel, the largest relative gap of a radius the
-program derived; kp_miss, the share of the program's correspondence rows
-that are not reference ISS keypoints; pose_fit_rad and pose_fit_t_over_thr,
-the gap from the program's pose to a least-squares fit over the reference's
-correspondences that lie within the distance threshold under the true pose.
+Printed beside them, not compared: ds_err_m, the largest gap from a
+program row to the reference centroid of its voxel (a row or voxel without
+a partner counts one voxel); radii_rel, the largest relative gap of a
+radius the program derived; kp_miss, the share of the program's
+correspondence rows that are not reference keypoints; pose_fit_rad and
+pose_fit_t_over_thr, the gap from the program's pose to a least-squares
+fit (fit) over the reference's correspondences that lie within the
+distance threshold under the true pose.
 
 The checked pairs are every pooled pair, each the first time the window
-sends it.  The reference (reference/) works every product out again from
-the inputs the benchmark gave the program.  The same comparison judges the
-control (control.py), the reference computed in TF32 put in the program's
-place.
+sends it.  The cell's reference module (benchmark/reference/<name>.py,
+named by the configuration's `reference`; manifest.load_cell loads it)
+works every product out again from the inputs the benchmark gave the
+program; its docstring names the route's stages.  The same comparison
+judges the control (control.py): the module's `control`, its reference in
+the precision next below the configuration's, put in the program's place.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from benchmark import stats
-from benchmark.reference import features, stages
+from benchmark.reference import stages
 
 RADII_KEYS = ("normal_cell", "density_src", "density_tgt", "iss_src", "iss_tgt", "feature",
               "thr")
@@ -106,70 +111,38 @@ def rule_numbers(records: list) -> dict:
     )
 
 
-@dataclass
-class PoseProducts:
-    """The reference's products for one pooled pair."""
-    vox_src: tuple  # (centroids, keys, grid)
-    vox_tgt: tuple
-    radii: dict
-    kp_src: torch.Tensor  # bool[m] ISS flags of the source's rows
-    kp_tgt: torch.Tensor
-    desc_src: features.Keypoints
-    desc_tgt: features.Keypoints
-    corr: torch.Tensor  # i64[c, 2] the gated correspondences, reference rows
-    T: np.ndarray  # the fit over the correspondences within thr of the truth
+def fit(src_rows, tgt_rows, corr, T_gt, thr: float, precision: str) -> np.ndarray:
+    """The least-squares rigid pose f64[4, 4] over the correspondences
+    i64[c, 2] whose rows lie within thr of each other under the true pose
+    (Kabsch: q ~ R p + t, the cross-covariance a matrix product of the
+    centred points in `precision`, its SVD in float64); the identity for
+    fewer than 3 such pairs."""
+    p, q = src_rows[corr[:, 0]], tgt_rows[corr[:, 1]]
+    Tg = torch.as_tensor(T_gt, dtype=torch.float64, device=p.device)
+    moved = p.to(torch.float64) @ Tg[:3, :3].T + Tg[:3, 3]
+    inl = (moved - q.to(torch.float64)).norm(dim=1) < thr
+    p, q = p[inl], q[inl]
+    T = np.eye(4)
+    if p.shape[0] < 3:
+        return T
+    cp, cq = p.to(torch.float64).mean(0), q.to(torch.float64).mean(0)
+    pc = (p.to(torch.float64) - cp).to(torch.float32)
+    qc = (q.to(torch.float64) - cq).to(torch.float32)
+    S = stages.matmul(pc.T.contiguous(), qc, precision).to(torch.float64).cpu().numpy()
+    U, _s, Vt = np.linalg.svd(S)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
+    R = Vt.T @ D @ U.T
+    T[:3, :3] = R
+    T[:3, 3] = cq.cpu().numpy() - R @ cp.cpu().numpy()
+    return T
 
 
-class Reference:
-    """The reference's products for one run's traffic, worked out lazily per
-    pose: the raw pair's densities, then each pose's voxel centroids, radii,
-    keypoints, descriptors, gated correspondences and fitted pose."""
-
-    def __init__(self, traffic, config: dict):
-        self.tr = traffic
-        self.factor = float(config["pre_downsample_voxel_per_density"])
-        self.gate_cfg = config["flagship"]
-        self.ds = stages.cloud_density(traffic.src)
-        self.dt = stages.cloud_density(traffic.tgt_world)
-        self._poses = {}
-
-    def voxels(self) -> tuple[float, float]:
-        return self.factor * self.ds, self.factor * self.dt
-
-    def pose(self, k: int) -> PoseProducts:
-        if k not in self._poses:
-            self._poses[k] = self._pose(k)
-        return self._poses[k]
-
-    def _pose(self, k: int) -> PoseProducts:
-        pair = self.tr.pairs[k]
-        vs, vt = self.voxels()
-        rs = stages.voxel_centroids(self.tr.src, vs, pair.aabb[0, 0])
-        rt = stages.voxel_centroids(pair.tgt, vt, pair.aabb[1, 0])
-        rr = stages.radii(stages.cloud_density(rs[0]), stages.cloud_density(rt[0]))
-        kps = stages.iss_keypoints(rs[0], rr["iss_src"])
-        kpt = stages.iss_keypoints(rt[0], rr["iss_tgt"])
-        ds = features.describe(rs[0], kps, rr["feature"], self.tr.vp_src)
-        dt = features.describe(rt[0], kpt, rr["feature"], pair.vp_tgt)
-        corr = features.gate(ds, dt, self.gate_cfg, "float32")
-        T = self.fit(rs[0], rt[0], corr, pair.T_gt, rr["thr"], "float32")
-        return PoseProducts(rs, rt, rr, kps, kpt, ds, dt, corr, T)
-
-    @staticmethod
-    def fit(src_rows, tgt_rows, corr, T_gt, thr: float, precision: str) -> np.ndarray:
-        """The least-squares pose over the correspondences within thr of
-        each other under the true pose."""
-        p, q = src_rows[corr[:, 0]], tgt_rows[corr[:, 1]]
-        Tg = torch.as_tensor(T_gt, dtype=torch.float64, device=p.device)
-        moved = p.to(torch.float64) @ Tg[:3, :3].T + Tg[:3, 3]
-        inl = (moved - q.to(torch.float64)).norm(dim=1) < thr
-        return features.fit(p[inl], q[inl], precision)
-
-
-def compare(raw_prog: dict, checked: list, ref: Reference) -> tuple[dict, dict]:
+def compare(raw_prog: dict, checked: list, ref) -> tuple[dict, dict]:
     """(the compared numbers, the printed ones) of the checked pairs
-    against the reference; raw_prog holds the program's densities of the
-    raw pair."""
+    against the cell's reference (its module's Reference: the raw pair's
+    densities .ds, .dt, and .pose(k), whose products compare reads are
+    vox_src, vox_tgt, radii, kp_src, kp_tgt, corr and T); raw_prog holds
+    the program's densities of the raw pair."""
     nums = dict(corr_extra=0.0, corr_missing=0.0)
     shown = dict(ds_err_m=0.0, radii_rel=radii_rel(
         raw_prog, {"density_src": ref.ds, "density_tgt": ref.dt}, ("density_src", "density_tgt")),

@@ -1,12 +1,10 @@
 #!/usr/bin/env python3
-"""The control of the check that decides `correct`: the reference computed
-in TF32 (every matrix product, which are the descriptor 1-NN's and the
-cluster gate's keypoint distances and the pose's cross-covariance, in TF32:
-the precision next below the configuration's float32 with TF32 off) put in
-the program's place and judged by check.compare against the float32
-reference on the cell's own traffic.  The stages before them form no
-matrix product, so they are the reference's own.  It has to come out not
-correct; its readings are the upper readings of the cell's limits.
+"""The control of the check that decides `correct`: the cell's reference
+computed in the precision next below the one the configuration states (the
+reference module's `control`: for float32 with TF32 off, every matrix
+product in TF32) put in the program's place and judged by check.compare
+against the reference itself on the cell's own traffic.  It has to come out
+not correct; its readings are the upper readings of the cell's limits.
 
     python3 benchmark/control.py --workload <cell> --seed <n> [--seed <m> ...]
 
@@ -28,22 +26,17 @@ import torch  # noqa: E402
 
 from benchmark import check, manifest  # noqa: E402
 from benchmark import traffic as traffic_mod  # noqa: E402
-from benchmark.reference import features  # noqa: E402
-
-PRECISION = "tf32"
 
 
 def control_numbers(cell: manifest.Cell, seed: int, device) -> tuple[dict, dict]:
     """(the compared numbers, the printed ones) of the control for one seed."""
     tr = traffic_mod.build(cell.traffic, seed, device)
-    ref = check.Reference(tr, cell.config)
+    ref = cell.reference.Reference(tr, cell.config)
     raw = {"density_src": ref.ds, "density_tgt": ref.dt}
     checked = []
     for k in traffic_mod.checked_pairs(seed, cell.traffic):
         pp = ref.pose(k)
-        corr = features.gate(pp.desc_src, pp.desc_tgt, ref.gate_cfg, PRECISION)
-        T = check.Reference.fit(pp.vox_src[0], pp.vox_tgt[0], corr, tr.pairs[k].T_gt,
-                                pp.radii["thr"], PRECISION)
+        corr, T = cell.reference.control(ref, k)
         checked.append(check.Checked(pose=k, src_rows=pp.vox_src[0], tgt_rows=pp.vox_tgt[0],
                                      corr=corr, radii=pp.radii, T=T))
     return check.compare(raw, checked, ref)

@@ -1,8 +1,8 @@
 """The plain reference of the stages after the keypoints, worked out again
 from the reference's own working rows and keypoints: the feature-scale
 surface, its normals, FPFH-33 at the keypoints, the descriptor 1-NN both
-ways, the cluster gate, the gated correspondences and a least-squares pose
-over them.  Plain PyTorch on any device; it imports nothing of the program.
+ways, the cluster gate and the gated correspondences.  Plain PyTorch on
+any device; it imports nothing of the program.
 
 Definitions (the configuration's route: ISS keypoints, FPFH on the
 feature-scale voxel surface, cluster matching):
@@ -36,13 +36,11 @@ feature-scale voxel surface, cluster matching):
   score kept.  A correspondence is (source keypoint row, its target 1-NN row).
 
 `precision="tf32"` computes every matrix product (the descriptor and the
-keypoint distances, the pose's cross-covariance) in TF32: on a CUDA card with
-TF32 switched on for the product, on the CPU with the operands rounded to
-TF32's 10-bit mantissa and a float32 product.  That is the control.
+keypoint distances) in TF32 (stages.matmul).  That is the control
+(feature_scale.control).
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
 
@@ -58,27 +56,6 @@ FEATURE_NR_POINTS = 352
 NORMAL_NR_POINTS = 30
 BIG = 3.0e38
 _MM_SLOTS = 1 << 26  # distance entries per query block of a distance matrix
-
-
-@contextlib.contextmanager
-def _tf32(on: bool):
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
-def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
-    """a @ b in float32, or in TF32 (see the module's docstring)."""
-    if precision not in ("float32", "tf32"):
-        raise ValueError(f"unknown precision {precision!r}")
-    tf32 = precision == "tf32"
-    if tf32 and not a.is_cuda:
-        return stages.tf32(a) @ stages.tf32(b)
-    with _tf32(tf32):
-        return a @ b
 
 
 def f32_square(r: float) -> float:
@@ -267,7 +244,8 @@ def nn1(fq, ft, qv, tv, precision: str):
     idx = torch.zeros((fq.shape[0],), dtype=torch.int64, device=fq.device)
     step = max(1, _MM_SLOTS // max(ft.shape[0], 1))
     for a in range(0, fq.shape[0], step):
-        d2 = qn[a:a + step, None] + tn[None, :] - 2.0 * matmul(fq[a:a + step], ft.T, precision)
+        d2 = (qn[a:a + step, None] + tn[None, :]
+              - 2.0 * stages.matmul(fq[a:a + step], ft.T, precision))
         d2 = torch.where(tv[None, :], d2, BIG)
         idx[a:a + step] = _rows_min(d2)
     return idx, qv & bool(tv.any())
@@ -289,7 +267,7 @@ def knn_self(x, v, k: int, precision: str):
     ids = torch.arange(n, device=x.device)
     for a in range(0, n, step):
         d2 = (xn[a:a + step, None] + xn[None, :]
-              - 2.0 * matmul(x[a:a + step], x.T, precision)).clamp_min(0.0)
+              - 2.0 * stages.matmul(x[a:a + step], x.T, precision)).clamp_min(0.0)
         d2 = torch.where(v[None, :], d2, BIG)
         d2 = torch.where(ids[None, :] == ids[a:a + step, None], BIG, d2)
         vals, sel = torch.topk(d2, kk, dim=1, largest=False)
@@ -332,22 +310,3 @@ def gate(src: Keypoints, tgt: Keypoints, gate_cfg: dict, precision: str) -> torc
         cut = torch.sort(torch.where(keep, score, math.inf)).values[K - 1]
         keep = keep & (score <= cut)
     return torch.stack([src.rows[keep], tgt.rows[i_st[keep]]], 1)
-
-
-def fit(p: torch.Tensor, q: torch.Tensor, precision: str) -> np.ndarray:
-    """The least-squares rigid pose f64[4, 4] with q ~ R p + t (Kabsch: the
-    cross-covariance a matrix product of the centred points, its SVD in
-    float64); the identity for fewer than 3 pairs."""
-    T = np.eye(4)
-    if p.shape[0] < 3:
-        return T
-    cp, cq = p.to(torch.float64).mean(0), q.to(torch.float64).mean(0)
-    pc = (p.to(torch.float64) - cp).to(torch.float32)
-    qc = (q.to(torch.float64) - cq).to(torch.float32)
-    S = matmul(pc.T.contiguous(), qc, precision).to(torch.float64).cpu().numpy()
-    U, _s, Vt = np.linalg.svd(S)
-    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
-    R = Vt.T @ D @ U.T
-    T[:3, :3] = R
-    T[:3, 3] = cq.cpu().numpy() - R @ cp.cpu().numpy()
-    return T

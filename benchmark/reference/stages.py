@@ -22,11 +22,15 @@ the configuration states them):
   keypoint where it is salient, has at least 4 neighbours and a larger l3
   than every neighbour.
 
-These stages form no matrix product, so the control (features.py's TF32
-products) leaves them as they are.
+These stages form no matrix product, so the control leaves them as they
+are.  `matmul` is every route's one matrix product, in float32 or, for the
+control, in TF32: on a CUDA card with TF32 switched on for the product, on
+the CPU with the operands rounded to TF32's 10-bit mantissa and a float32
+product.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -41,6 +45,27 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     bits = x.contiguous().view(torch.int32)
     bits = (bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF
     return bits.view(torch.float32)
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b in float32, or in TF32 (see the module's docstring)."""
+    if precision not in ("float32", "tf32"):
+        raise ValueError(f"unknown precision {precision!r}")
+    low = precision == "tf32"
+    if low and not a.is_cuda:
+        return tf32(a) @ tf32(b)
+    with _tf32(low):
+        return a @ b
 
 
 def smoothed_densities(pts: torch.Tensor, k: int = 8) -> torch.Tensor:

@@ -11,9 +11,10 @@ Set-up builds the traffic from the seed on the card, derives the radii
 pre-downsampled pair) and registers every pooled pair once.  The window is
 a closed loop with one client: pair i is pooled pair i mod pool, and each pair
 is `flagship.pre_downsample_pair` then `flagship.register_pair_staged`, the
-pose read to the host.  After the window the reference checks the
-outcome (check.py); the last stdout line is the JSON result, and the
-numbers compared, each beside its limit, close stderr.
+pose read to the host.  After the window check.py compares the outcome
+with the cell's reference module (benchmark/reference/<name>.py, named by
+the configuration's `reference`); the last stdout line is the JSON result,
+and the numbers compared, each beside its limit, close stderr.
 
 With --trace 1 the first `profiled_pairs` pairs of the window run under
 torch.profiler and the rest with register_pair_staged's stage_times; the
@@ -260,15 +261,13 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     numbers = check.rule_numbers(records)
-    ref = check.Reference(tr, conf)
+    ref = cell.reference.Reference(tr, conf)
     compared, shown = check.compare(raw, checked, ref)
     numbers.update(compared)
     for c in checked:
-        pp = ref.pose(c.pose)
-        log(f"# reference of pose {tr.pairs[c.pose].pose}: ISS keypoints "
-            f"{int(pp.kp_src.sum())} / {int(pp.kp_tgt.sum())}, descriptors "
-            f"{int(pp.desc_src.valid.sum())} / {int(pp.desc_tgt.valid.sum())}, "
-            f"gated correspondences {pp.corr.shape[0]} (the program's {c.corr.shape[0]})")
+        counts = ", ".join(f"{k} {v}" for k, v in ref.pose(c.pose).counts.items())
+        log(f"# reference of pose {tr.pairs[c.pose].pose}: {counts} "
+            f"(the program's {c.corr.shape[0]})")
     limits = {"rule_rot_rad": rule["rot_rad"], "rule_t_over_thr": rule["t_over_thr"],
               "rule_unconverged": 0.0, **cell.limits}
     correct, table = check.judge(numbers, limits)

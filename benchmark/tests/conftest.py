@@ -1,7 +1,7 @@
 """Tests of the benchmark harness.  Those that need a CUDA card carry the
 `card` marker and skip, inside the `card` fixture, where none is visible;
 on the card: python -m pytest benchmark/tests -m card."""
-import copy
+import shutil
 import sys
 from pathlib import Path
 
@@ -30,10 +30,20 @@ def tiny_cell():
     on the 30 m site, a pool of 2 poses, one profiled pair."""
     from benchmark import manifest
 
-    def make(name="iss_fpfh.4m", **traffic):
-        cell = copy.deepcopy(manifest.load_cell(name))
+    def make(name="iss_fpfh.4m", root=manifest.ROOT, **traffic):
+        cell = manifest.load_cell(name, root)
         cell.traffic.update({**dict(points_per_side=65536, extent_m=30.0, pool=2,
                                     profiled_pairs=1), **traffic})
         return cell
 
     return make
+
+
+@pytest.fixture
+def bench_copy(tmp_path):
+    """A copy of the benchmark as a checkout holds it (BENCHMARK.json and
+    benchmark/), in a temporary directory; returns its root."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return tmp_path

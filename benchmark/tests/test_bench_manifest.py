@@ -6,6 +6,7 @@ import re
 import pytest
 
 from benchmark import manifest
+from benchmark.reference import feature_scale
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -53,6 +54,7 @@ def test_cell_files_resolve(cell):
     c = manifest.load_cell(cell)
     assert c.config["flagship"] and c.traffic["points_per_side"] > 0
     assert set(c.limits) == {"corr_extra", "corr_missing"}
+    assert callable(c.reference.Reference) and callable(c.reference.control)
     assert {"pairs_per_s", "setup_s"} <= {m["name"] for m in c.end_to_end}
     for m in c.per_layer:
         assert callable(manifest.reader(m["name"]))
@@ -65,3 +67,26 @@ def test_every_config_has_a_cell():
 def test_unknown_cell_raises():
     with pytest.raises(KeyError):
         manifest.load_cell("no_such_cell")
+
+
+@pytest.mark.parametrize("reference, flagship, keys", [
+    (None, {}, ["reference"]),
+    ("../reference/feature_scale", {}, ["reference"]),
+    ("feature_scale", {"pyramid": True}, ["pyramid"]),
+    ("feature_scale", {"descriptor": "shot"}, ["descriptor"]),
+], ids=["no_reference", "a_path", "pyramid", "shot"])
+def test_load_cell_refuses_a_route_its_reference_does_not_cover(bench_copy, reference, flagship,
+                                                                 keys):
+    path = bench_copy / "benchmark" / "configs" / "iss_fpfh.json"
+    conf = json.loads(path.read_text())
+    conf.pop("reference")
+    if reference is not None:
+        conf["reference"] = reference
+    conf["flagship"].update(flagship)
+    path.write_text(json.dumps(conf))
+    with pytest.raises(ValueError) as err:
+        manifest.load_cell("iss_fpfh.4m", bench_copy)
+    msg = str(err.value)
+    for k in ["reference", *feature_scale.COVERS]:
+        assert (f"{k} is " in msg) == (k in keys), (k, msg)
+

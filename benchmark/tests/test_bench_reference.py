@@ -109,8 +109,8 @@ def test_gate_agrees_with_the_port(tiny_cell):
 def test_tf32_changes_only_the_products():
     g = torch.Generator().manual_seed(5)
     a = torch.rand((64, 33), generator=g) * 100.0
-    exact = features.matmul(a, a.T, "float32")
-    low = features.matmul(a, a.T, "tf32")
+    exact = stages.matmul(a, a.T, "float32")
+    low = stages.matmul(a, a.T, "tf32")
     assert torch.equal(low, stages.tf32(a) @ stages.tf32(a).T)
     assert not torch.equal(low, exact) and torch.allclose(low, exact, rtol=2e-3)
 
